@@ -1,4 +1,4 @@
-"""Warm GpOptimiser iteration latency on the real chip.
+"""Warm GpOptimiser iteration latency on the GPU.
 
 Round 3 fused the warm BO iteration (add_evaluation + the next
 propose_evaluation) into ONE compiled device program with

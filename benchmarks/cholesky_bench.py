@@ -1,4 +1,4 @@
-"""Blocked vs XLA Cholesky on the real chip.
+"""Blocked vs XLA Cholesky on the GPU.
 
 The GP LML+gradient flagship is Cholesky-bound: BENCH_NOTES measures the
 N=16,384 eval at ~11% of the f32-HIGHEST ceiling, with XLA's sequential

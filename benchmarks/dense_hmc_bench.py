@@ -1,9 +1,9 @@
-"""Compute-dense sampling flagship: batched HMC on MXU-shaped posteriors.
+"""Compute-dense sampling: batched HMC on matmul-shaped posteriors.
 
-The headline HMC benchmark (bench.py) is a 10-dim Gaussian — a VPU
-workload whose honest MFU is ~0.4%: it demonstrates dispatch-overhead
-amortisation, not arithmetic throughput. This bench shows the sampler
-stack FEEDING THE MXU when the posterior has arithmetic to offer:
+The headline HMC benchmark (bench.py) is a 10-dim Gaussian — an
+elementwise workload: it demonstrates dispatch-overhead amortisation,
+not arithmetic throughput. This bench shows the sampler stack feeding
+the matrix units when the posterior has arithmetic to offer:
 
 1. P=256 correlated Gaussian with a full matrix inverse-mass — each
    leapfrog step is two (chains, P) x (P, P) matmuls (the gradient and
@@ -15,9 +15,9 @@ stack FEEDING THE MXU when the posterior has arithmetic to offer:
    reference: inference/likelihoods.py:122-167): each gradient is a pair
    of (chains, P) x (P, N_data) matmuls.
 
-Sweeps the chain batch to saturation; reports samples/s, model TFLOP/s
-and MFU against the v5e bf16 peak (matmuls run at default precision —
-bf16 operands — exactly as a throughput-hungry user would run them).
+Sweeps the chain batch to saturation; reports samples/s and model
+TFLOP/s (matmuls run at default precision, exactly as a throughput-hungry
+user would run them).
 
 Usage: python benchmarks/dense_hmc_bench.py [n_chains ...]
 """
@@ -33,7 +33,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 P = 256
 N_DATA = 1024
 HMC_STEPS = 20
-PEAK_FLOPS = 197e12  # v5e bf16 peak per chip
 
 
 def correlated_gaussian():
@@ -106,11 +105,9 @@ def run(kind, logp, inverse_mass, sweep):
         accept = float((np.abs(np.diff(theta, axis=0)).max(axis=2) > 0).mean())
         rate = n_chains * steps * accept / dt
         tflops = rate / accept * fpt / 1e12  # attempts carry the flops
-        mfu = 100 * tflops * 1e12 / PEAK_FLOPS
         print(
             f"[{kind}] chains={n_chains:6d}: {rate:12.0f} samples/s "
-            f"(accept {accept:.2f}), {tflops:7.2f} TFLOP/s, "
-            f"MFU {mfu:5.2f}%",
+            f"(accept {accept:.2f}), {tflops:7.2f} TFLOP/s",
             flush=True,
         )
         if rate > best[0]:

@@ -1,12 +1,12 @@
-"""End-to-end df64 training solve: stored-entries tier vs fused kernel.
+"""End-to-end df64 training solve: stored-entries tier vs
+evaluate-per-matvec.
 
 The stored tier (`ops/df64.py::sqexp_entries_df64` +
 `sqexp_stored_matmat_df64`) materialises the covariance pair entries
-once (8 bytes/entry of HBM) so every PCG iteration pays ~38 flops/entry
-instead of the fused kernel's ~230 flops of pair-arithmetic d^2 + exp.
-This measures the end-to-end effect on the `LargeScaleGP(solver="df64")`
-training solve at sigma = 0.01 — the round-3 headline regime
-(BENCH_NOTES: N=16,384 fused solve 118 s, f64 residual 9.5e-10).
+once (8 bytes/entry of device memory) so every PCG iteration is a
+contraction instead of a d^2 + exp evaluation per entry. This measures
+the end-to-end effect on the `LargeScaleGP(solver="df64")` training
+solve at sigma = 0.01.
 
 Usage: python benchmarks/df64_solve_bench.py [N]
 """

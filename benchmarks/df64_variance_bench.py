@@ -1,7 +1,7 @@
-"""Batched df64 posterior-variance solves on the real chip.
+"""Batched df64 posterior-variance solves on the GPU.
 
-Measures (a) the per-column amortisation of the multi-RHS pair-arithmetic
-matmat kernel (`ops/df64.py::sqexp_matmat_df64`) against the single-RHS
+Measures (a) the per-column amortisation of the multi-RHS df64 matmat
+(`ops/df64.py::sqexp_matmat_df64`) against the single-RHS
 matvec, and (b) the end-to-end `LargeScaleGP(solver="df64")` variance
 path at N=16,384, sigma=0.01 — the small-noise regime where the
 amp^2 - quad cancellation needs float64 accuracy throughout

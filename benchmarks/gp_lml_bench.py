@@ -1,8 +1,8 @@
 """GP marginal-likelihood + gradient throughput vs dataset size N
 (BASELINE.md north-star #2: LML+grad evals/sec at N=16k).
 
-Times the jitted value_and_grad of the LML (covariance assembly through the
-Pallas kernel on TPU, Cholesky, triangular solves, autodiff backward) and —
+Times the jitted value_and_grad of the LML (covariance assembly, Cholesky,
+triangular solves, the gradient path ``cholesky="auto"`` picks) and —
 for small N where it is feasible — the reference implementation's
 ``marginal_likelihood_gradient`` on the same data.
 
@@ -35,21 +35,13 @@ def model_flops(n, d=2):
     return n**3 + (6 * d + 9) * n**2
 
 
-# v5e peak: ~197 TFLOP/s dense bf16 MXU. The LML's matmul/Cholesky chain
-# runs float32 at Precision.HIGHEST (6-pass bf16 decomposition), so the
-# achievable ceiling for this computation is ~197/6 ~ 33 TFLOP/s.
-PEAK_BF16 = 197e12
-PEAK_F32_HIGHEST = PEAK_BF16 / 6
-
-
 def time_rebuild(n, cholesky="auto"):
     import jax.numpy as jnp
     from inference_tpu.gp import GpRegressor
 
     x, y, err = make_data(n)
     theta = np.array([0.0, 0.0, 0.5, 0.5])
-    # float32 regardless of the process's x64 setting (the chip's
-    # measured working precision; emulated f64 is unusable at large N)
+    # float32 regardless of the process's x64 setting
     gp = GpRegressor(
         x, y, y_err=err, hyperpars=theta, dtype="float32",
         cholesky=cholesky,
@@ -92,10 +84,7 @@ def main():
         tflops = model_flops(n) / dt / 1e12
         line = (
             f"N={n:6d}: rebuild {1 / dt:8.2f} evals/s ({dt * 1e3:8.1f} ms), "
-            f"{tflops:6.2f} TFLOP/s "
-            f"(MFU {100 * tflops * 1e12 / PEAK_BF16:.1f}% of bf16 peak, "
-            f"{100 * tflops * 1e12 / PEAK_F32_HIGHEST:.1f}% of the "
-            f"f32-HIGHEST ceiling), lml={lml:.4f}"
+            f"{tflops:6.2f} TFLOP/s, lml={lml:.4f}"
         )
         if n <= 4096:
             ref_dt, ref_lml = time_reference(n)
@@ -109,7 +98,7 @@ def main():
             # the "auto" policy (measured per-program choice) against the
             # pure-expander and pure-blocked backends, end to end through
             # the same LML value+gradient program
-            for backend in ("xla", "blocked"):
+            for backend in ("xla", "blocked", "analytic"):
                 dt_b, lml_b = time_rebuild(n, cholesky=backend)
                 tflops_b = model_flops(n) / dt_b / 1e12
                 print(

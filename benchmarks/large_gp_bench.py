@@ -1,5 +1,5 @@
 """Matrix-free GP at very large N (BASELINE stretch config #5 scale):
-training solve + predictions at N = 50,000 on one chip, where dense
+training solve + predictions at N = 50,000 on one device, where dense
 factorisation (O(N^2) memory) no longer fits and the reference's
 N x N x D precompute is a hard memory wall.
 

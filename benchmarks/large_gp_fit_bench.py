@@ -1,8 +1,8 @@
-"""Matrix-free hyperparameter fitting at large N on the real chip.
+"""Matrix-free hyperparameter fitting at large N on the GPU.
 
 `LargeScaleGP.fit()` — Adam on Hutchinson-trace stochastic LML gradients,
 one batched multi-RHS CG solve per step (all systems share each blocked
-MXU kernel matmul). The reference's `GpRegressor.fit` factorises dense K
+kernel matmul). The reference's `GpRegressor.fit` factorises dense K
 per objective evaluation (inference/gp/regression.py:528-567) and is
 out of memory long before this scale.
 

@@ -1,4 +1,4 @@
-"""Batched NUTS throughput on the real chip (beyond the reference).
+"""Batched NUTS throughput on the GPU (beyond the reference).
 
 Measures ``ChainArray("nuts", ...)`` transition and leapfrog throughput
 against the HMC headline configuration on the same 10-dim correlated

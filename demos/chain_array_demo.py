@@ -1,4 +1,4 @@
-"""ChainArray demo: thousands of HMC chains per chip — the TPU-native
+"""ChainArray demo: thousands of HMC chains per device — the vectorised
 replacement for the reference's ChainPool
 (reference: demos/scripts/ChainPool_demo.py)."""
 

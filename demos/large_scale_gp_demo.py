@@ -1,7 +1,7 @@
 """LargeScaleGP demo (beyond the reference's GpRegressor scale):
 matrix-free GP regression on 50,000 points — the covariance matrix is
 never materialised; blocked kernel matvecs drive preconditioned conjugate
-gradients. On a TPU chip the full training solve takes seconds."""
+gradients."""
 
 import time
 

@@ -1,11 +1,12 @@
-"""inference_tpu — a TPU-native Bayesian inference toolkit.
+"""inference_tpu — a Bayesian inference toolkit on JAX accelerators.
 
-A from-scratch JAX/XLA/Pallas rebuild with the capabilities of
+A from-scratch JAX/XLA rebuild with the capabilities of
 ``inference-tools``: adaptive MCMC samplers whose step loops compile to
 ``lax.scan`` and vmap over thousands of chains, Gaussian-process
-regression / Bayesian optimisation / linear inversion with MXU-friendly
+regression / Bayesian optimisation / linear inversion with on-device
 kernel assembly and autodiff hyperparameter gradients, density estimation,
-likelihood/prior/posterior building blocks, and matplotlib diagnostics.
+likelihood/prior/posterior building blocks, and matplotlib diagnostics
+(matplotlib is imported only by the plotting methods).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Conditional-distribution approximations of a posterior.
 
-TPU-native rebuild of the reference conditional tools
+JAX rebuild of the reference conditional tools
 (reference: inference/approx/conditional.py:9-313): 1D conditional slices of
 a posterior around a point, sampled and summarised via a piecewise-linear
 inverse-transform sampler with a numerically-stable trapezium branch.

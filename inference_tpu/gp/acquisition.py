@@ -1,6 +1,6 @@
 """Acquisition functions for Gaussian-process optimisation.
 
-TPU-native rebuild of the reference acquisition classes
+JAX rebuild of the reference acquisition classes
 (reference: inference/gp/acquisition.py:8-232). The expected-improvement
 implementation uses a single numerically-stable log-domain formula built on
 ``log_ndtr`` (replacing the reference's explicit ``erfcx`` branch for
@@ -46,7 +46,7 @@ class AcquisitionFunction:
         point inside the bounds, plus uniform draws for points outside
         (reference: acquisition.py:13-37). All candidates are scored in ONE
         batched device call (the reference evaluates them one at a time;
-        on a remote accelerator each evaluation is a network round-trip).
+        on an accelerator each evaluation would be a device round-trip).
         """
         lwr, upr = [np.array([k[i] for k in bounds], dtype=float) for i in [0, 1]]
         widths = upr - lwr

@@ -2,8 +2,8 @@
 
 ``LargeScaleGP`` / ``LargeScaleGpLinearInverter`` never materialise the
 covariance matrix: they need only (a) blocked cross-covariance **rows**
-``K(xa, xb; theta)`` evaluated on the fly (each block one MXU-friendly
-matmul + elementwise epilogue), (b) the prior point variance
+``K(xa, xb; theta)`` evaluated on the fly (each block one fused
+elementwise pass), (b) the prior point variance
 ``K(x, x; theta)`` for diagonals/preconditioners, and (c) any
 white-noise variance the kernel adds to the *data* diagonal. A
 ``BlockKernel`` packages exactly those three maps over a single flat
@@ -13,8 +13,8 @@ hyperparameter vector, so the solvers and the stochastic-LML ``fit()``
 Supported dense-path kernels (``as_block_kernel``):
 
 - ``SquaredExponential`` — theta ``[ln A, ln l_1..l_D]``; the rows run
-  through the fused Pallas kernel (``ops.pairwise.sqexp_covariance``)
-  and this is the only kernel with a df64 (two-float32) solver tier.
+  through ``ops.pairwise.sqexp_covariance`` and this is the only kernel
+  with a df64 solver tier.
 - ``RationalQuadratic`` — theta ``[ln A, ln alpha, ln l_1..l_D]``
   (reference: inference/gp/covariance.py:282-368); f32/mixed tiers.
 - either of the above ``+ WhiteNoise()`` — the noise hyperparameter

@@ -1,6 +1,6 @@
 """Covariance functions for Gaussian-process regression.
 
-TPU-native rebuild of the reference kernel classes
+JAX rebuild of the reference kernel classes
 (reference: inference/gp/covariance.py:8-705) with the same public API
 (``pass_spatial_data``, ``estimate_hyperpar_bounds``, ``__call__``,
 ``build_covariance``, ``covariance_and_gradients``, composition via ``+``),
@@ -8,8 +8,8 @@ but different internals:
 
 - **No N x N x D precomputed distance tensor** (the reference's memory wall,
   reference: covariance.py:218-219). Pairwise scaled squared distances are
-  assembled on the fly as ``|u|^2 + |v|^2 - 2 u v^T`` — one matmul that maps
-  straight onto the MXU and costs O(N^2) memory rather than O(N^2 D).
+  assembled on the fly (``ops.pairwise``) at O(N^2) memory rather than
+  O(N^2 D).
 - **Hyperparameter gradients via autodiff**: ``covariance_and_gradients``
   is ``jax.jacfwd`` of ``build_covariance`` (the reference hand-derives each
   kernel's gradients, reference: covariance.py:268-276,350-365,561-593).
@@ -60,17 +60,13 @@ class CovarianceFunction(ABC):
     def covariance_and_gradients(self, theta):
         """
         The data covariance matrix and its gradients with respect to each
-        hyperparameter, computed by forward-mode autodiff. Traced on the
-        plain-XLA covariance path: the Pallas kernel's custom VJP forbids
-        ``jacfwd`` (the fitting path never needs this method — it
-        differentiates the scalar likelihood in reverse mode).
+        hyperparameter, computed by forward-mode autodiff (the fitting path
+        never needs this method — it differentiates the scalar likelihood
+        in reverse mode).
         """
-        from ..ops.pairwise import force_fallback
-
         theta = jnp.asarray(theta)
         K = self.build_covariance(theta)
-        with force_fallback():
-            jac = jax.jacfwd(self.build_covariance)(theta)
+        jac = jax.jacfwd(self.build_covariance)(theta)
         return K, [jac[..., i] for i in range(theta.size)]
 
     def __add__(self, other):

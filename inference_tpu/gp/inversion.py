@@ -1,6 +1,6 @@
 """Gaussian-process linear inversion.
 
-TPU-native rebuild of the reference ``GpLinearInverter``
+JAX rebuild of the reference ``GpLinearInverter``
 (reference: inference/gp/inversion.py:11-249): linear-Gaussian inverse
 problems (tomography / deconvolution) with a GP prior over the model
 parameters. The posterior algebra runs as jitted device programs, and the

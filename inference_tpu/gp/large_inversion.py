@@ -10,13 +10,13 @@ same linear-Gaussian inverse problem matrix-free:
 
 The M x M data-space operator is applied as ``A (K (A^T v)) + Sigma v``
 with the prior covariance matvec computed in row blocks on the fly (the
-same MXU-tiled block pattern as ``LargeScaleGP`` — no N x N matrix ever
+same row-block pattern as ``LargeScaleGP`` — no N x N matrix ever
 exists), solved with preconditioned conjugate gradients. Posterior
 variances come from one BATCHED multi-right-hand-side CG solve over the
 requested parameters (each iteration shares a single prior matmul).
 
 Parameter rows (and the model-matrix columns) shard over an optional
-device mesh, so N scales with the number of chips.
+device mesh, so N scales with the number of devices.
 """
 
 from warnings import warn
@@ -28,6 +28,7 @@ from jax import lax
 from jax.scipy.sparse.linalg import cg
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from ..ops.df64 import split_pair
 from ..ops.pairwise import sqexp_covariance
 from ..utils.dtypes import default_float
 
@@ -62,23 +63,22 @@ class LargeScaleGpLinearInverter:
         restarted PCG with float64 scalar recurrences (see
         ``LargeScaleGP``) for very small noise where float32 CG's
         recursive residual drifts. "df64" evaluates the whole data-space
-        operator to double-float accuracy: the N-dimensional
-        prior-covariance contraction through the pair-arithmetic Pallas
-        kernel (``ops.df64.sqexp_matvec_df64``) on an exact hi/lo input
-        split, the A products as emulated-float64 M x N matvecs (tiny
-        programs — float32 A products were measured to floor the
-        residual at ~2e-5), and float64 CG vectors in bounded compiled
-        chunks. Requires ``jax_enable_x64``; with a mesh the prior
-        contraction runs the row-sharded rectangular kernel
-        (``ops.df64.sqexp_matmat_df64_sharded``) across devices.
+        operator to float64 accuracy: the N-dimensional prior-covariance
+        contraction through the df64 tier (``ops.df64.sqexp_matvec_df64``)
+        on an exact hi/lo input split, the A products as float64 M x N
+        matvecs (float32 A products were measured to floor the residual
+        at ~2e-5), and float64 CG vectors in compiled chunks. Requires
+        ``jax_enable_x64``; with a mesh the prior contraction runs
+        row-sharded (``ops.df64.sqexp_matmat_df64_sharded``) across
+        devices.
     :param dtype: optional dtype override for the stored arrays and the
         traced solve programs. Defaults to float32 for ``solver="df64"``
-        (its precision lives in the pair-arithmetic operator and float64
-        CG vectors, not the storage) and to the JAX default float
+        (its precision lives in the float64 operator and CG vectors, not
+        the storage) and to the JAX default float
         otherwise.
     :param mesh: optional 1D mesh; parameter rows and the model-matrix
         columns shard over its first axis (the df64 tier's stored-entries
-        fast path is single-chip and is skipped on a mesh).
+        fast path is single-device and is skipped on a mesh).
     :param store_entries: df64 tier only. ``True``/"auto" store the full
         float32 entry PAIR up to n_padded = 20480 (8 bytes/entry); past
         that, "auto" falls back to the fused evaluate-per-matvec kernel.
@@ -126,7 +126,7 @@ class LargeScaleGpLinearInverter:
             raise ValueError(
                 f"[ LargeScaleGpLinearInverter error ] solver='df64' is "
                 f"implemented for the pure SquaredExponential kernel only "
-                f"(its pair-arithmetic Pallas entry kernels are kernel-"
+                f"(the df64 tier's entry evaluation is kernel-"
                 f"specific); got {self._bk.name}. Use solver='cg' or "
                 f"'mixed' for this kernel."
             )
@@ -152,19 +152,18 @@ class LargeScaleGpLinearInverter:
             if mesh is not None and store_entries in (True, "f32"):
                 raise ValueError(
                     "[ LargeScaleGpLinearInverter error ] "
-                    "store_entries is single-chip (the stored entries "
-                    "are one device's HBM); with a mesh the df64 tier "
-                    "runs the row-sharded fused kernel — drop the flag."
+                    "store_entries is single-device (the stored entries "
+                    "live in one device's memory); with a mesh the df64 "
+                    "tier runs the row-sharded matvec — drop the flag."
                 )
         self.solver = solver
         self._mesh = mesh
         if dtype is None:
-            # df64 carries its precision in the pair-arithmetic matvec,
-            # the emulated-f64 A products and the float64 CG vectors; the
-            # stored arrays and traced fallback programs should stay
-            # float32 — float64 storage under jax_enable_x64 (mandatory
-            # for df64) would silently run every traced kernel-block
-            # matmul in TPU-emulated f64 (see LargeScaleGP)
+            # df64 carries its precision in the float64 matvec, the f64
+            # A products and the float64 CG vectors; the stored arrays
+            # and traced fallback programs stay float32 — float64 storage
+            # under jax_enable_x64 (mandatory for df64) would silently
+            # run every traced kernel-block matmul in f64
             dtype = jnp.float32 if solver == "df64" else default_float()
         else:
             dtype = jnp.dtype(dtype)
@@ -249,24 +248,24 @@ class LargeScaleGpLinearInverter:
     def _prepare_df64(self, x_padded):
         """Pre-split the scaled parameter positions into a float32 pair
         (host float64; hyperparameters are fixed for the solve)."""
-        from ..ops.df64 import split_f64, _TJ
+        from ..ops.df64 import split_f64, _PAD
 
-        if self._n_padded % _TJ != 0:
+        if self._n_padded % _PAD != 0:
             raise ValueError(
                 f"[ LargeScaleGpLinearInverter error ] solver='df64' "
                 f"needs the padded parameter count to be a multiple of "
-                f"{_TJ}; use a block_size that is a multiple of {_TJ}."
+                f"{_PAD}; use a block_size that is a multiple of {_PAD}."
             )
         if self._mesh is not None:
-            from ..ops.df64 import _TI
+            from ..ops.df64 import _PAD
 
             n_dev = self._mesh.shape[self._mesh.axis_names[0]]
-            if self._n_padded % (n_dev * _TI) != 0:
+            if self._n_padded % (n_dev * _PAD) != 0:
                 raise ValueError(
                     f"[ LargeScaleGpLinearInverter error ] solver='df64' "
                     f"on a {n_dev}-device mesh needs the padded parameter "
                     f"count ({self._n_padded}) to split into per-device "
-                    f"blocks that are multiples of {_TI}; adjust "
+                    f"blocks that are multiples of {_PAD}; adjust "
                     f"block_size."
                 )
         ls64 = np.exp(np.asarray(self.hyperpars[1:], np.float64))
@@ -279,8 +278,8 @@ class LargeScaleGpLinearInverter:
         self._entries = None
         self._entries_f32 = None
         if self._mesh is not None:
-            # the mesh path runs the row-sharded fused kernel; a stored
-            # (n, n) entry pair is one device's HBM and stays single-chip
+            # the mesh path runs the row-sharded matvec; a stored (n, n)
+            # entry pair lives in one device's memory
             return
         from ..ops.df64 import stored_entries_tier
 
@@ -313,8 +312,7 @@ class LargeScaleGpLinearInverter:
         entry pair when materialised, else the scaled-coordinate pair.
         Threaded through the solver as arguments on every dispatch — a
         bound method closing over an (n, n) device array would embed it
-        in the compiled chunk's HLO module (the compile-payload trap:
-        256 MB at n=8192 already exceeded the remote-compile limit)."""
+        in the compiled chunk's HLO module as a constant."""
         if self._entries is not None:
             return self._entries
         return (self._us_hi, self._us_lo)
@@ -336,13 +334,11 @@ class LargeScaleGpLinearInverter:
         return sqexp_matmat_df64(op_a, op_b, V32)
 
     def _prior_apply_split64(self, P64, op_a, op_b):
-        """``K P`` for a float64 (n, q) block, through ONE pair-arithmetic
-        matmat on the exact hi/lo split of ``P`` (the hi and lo columns
-        ride together, so the ~190-flop entries are evaluated once)."""
-        f32, f64 = jnp.float32, jnp.float64
+        """``K P`` for a float64 (n, q) block, through ONE df64 matmat on
+        the exact hi/lo split of ``P`` (the hi and lo columns ride
+        together, so the entries are evaluated once)."""
         q = P64.shape[1]
-        Ph = P64.astype(f32)
-        Pl = (P64 - Ph.astype(f64)).astype(f32)
+        Ph, Pl = split_pair(P64)
         KP = self._prior_matmat64(
             jnp.concatenate([Ph, Pl], axis=1), op_a, op_b
         )
@@ -351,14 +347,12 @@ class LargeScaleGpLinearInverter:
 
     def _data_matvec64(self, v32, A64, op_a, op_b):
         """Double-float data-space matvec ``(Sigma + A K A^T) v``: the
-        N-dimensional prior-covariance contraction runs through the
-        pair-arithmetic Pallas kernel on an exact hi/lo split of its
-        float64 input (the old float32 entry-noise floor), and the A
-        products are emulated-float64 M x N matVECs — tiny programs, a
-        factor N smaller than the N x N float64 programs this backend
-        cannot hold (float32 A products were measured to floor the
-        data-space residual at ~2e-5: their rounding is operator-internal
-        noise that the solver cannot correct)."""
+        N-dimensional prior-covariance contraction runs through the df64
+        tier on an exact hi/lo split of its float64 input, and the A
+        products are float64 M x N matVECs (float32 A products were
+        measured to floor the data-space residual at ~2e-5: their
+        rounding is operator-internal noise that the solver cannot
+        correct)."""
         f64 = jnp.float64
         v64 = v32.astype(f64)
         p64 = jnp.dot(A64.T, v64, precision=_HI)
@@ -383,10 +377,8 @@ class LargeScaleGpLinearInverter:
         quantisation; the contraction itself is pair-exact."""
         from ..ops.df64 import sqexp_stored_f32_matmat
 
-        f32, f64 = jnp.float32, jnp.float64
         q = P64.shape[1]
-        Ph = P64.astype(f32)
-        Pl = (P64 - Ph.astype(f64)).astype(f32)
+        Ph, Pl = split_pair(P64)
         KP = sqexp_stored_f32_matmat(E, jnp.concatenate([Ph, Pl], axis=1))
         amp2 = np.exp(2.0 * float(self.hyperpars[0]))
         return amp2 * (KP[:, :q] + KP[:, q:])
@@ -518,28 +510,20 @@ class LargeScaleGpLinearInverter:
         self._solve_data = lambda rhs: solve_jit(*args(), rhs)
         self._data_matvec = lambda v: matvec_jit(*args(), v)
         if use_df64:
-            from ..ops.solvers import Df64Solver, df64_chunk_iters
+            from ..ops.solvers import Df64Solver
 
             self._A64 = jnp.asarray(np.asarray(self._A), jnp.float64)
-            # the data-space system is M x M but each iteration pays two
-            # N-dimensional pair-arithmetic kernel calls, so the chunk
-            # sizing tracks the kernel cost as in LargeScaleGP. The
-            # stored-f32 tier keeps FULL-length chunks here (unlike
+            # the stored-f32 tier keeps FULL-length chunks here (unlike
             # LargeScaleGP._df64_chunk): the data-space solve has only a
             # diagonal preconditioner, so real Krylov depth is needed —
             # inner-CG breakdowns at the quantisation depth end the
             # chunk early and the host loop resumes from the refreshed
             # residual (ops.solvers.Df64MultiSolver.solve)
-            chunk = df64_chunk_iters(
-                self._n_padded,
-                matvecs_per_iter=0.1 if self._entries_f32 is not None else 2,
-            )
             solver = Df64Solver(
                 self._data_matvec64,
                 M=lambda v, sig: v / sig,
                 M_args=(self._sig,),
                 matvec_args=(self._A64, *self._df64_op_args()),
-                restart_every=chunk,
                 **self._df64_fast_kwargs("matvec"),
             )
             def solve_ds_checked():
@@ -620,14 +604,13 @@ class LargeScaleGpLinearInverter:
             # solve's accuracy (kernel-entry noise ~1e-5 on the mean
             # contraction; the amp^2 - quad variance cancellation reaches
             # sigma^2 scale at small noise) — route both through the
-            # pair-arithmetic machinery and the float64 solution
+            # df64 tier and the float64 solution
             self._mean_field = self._mean_field_df64
             self._variances = self._variances_df64
             self._cg_tol, self._cg_maxiter = cg_tol, cg_maxiter
 
     # data-space variance solves per column block: each block column
-    # carries a hi/lo pair through the kernel, and the matmat kernel's
-    # (q, TJ, TI) accumulators pressure VMEM past ~16 kernel columns
+    # carries a hi/lo pair through the matmat
     _DF64_VAR_COLS = 4
 
     def _k_rows_host64(self, idx) -> np.ndarray:
@@ -642,7 +625,7 @@ class LargeScaleGpLinearInverter:
 
     def _mean_field_df64(self) -> np.ndarray:
         """Posterior mean field at float64: ``mu + K A^T z64`` with the
-        prior contraction through ONE pair-arithmetic matmat on the exact
+        prior contraction through ONE df64 matmat on the exact
         hi/lo split of ``A^T z64`` (the f32 traced path's kernel-entry
         noise ~1e-5 would bury the data-space solve's ~1e-10 accuracy)."""
         A64h = np.asarray(self._A64, np.float64)
@@ -661,7 +644,7 @@ class LargeScaleGpLinearInverter:
         sigma^2 scale at small noise — beyond float32 reach) in host f64."""
         import warnings
 
-        from ..ops.solvers import Df64MultiSolver, df64_chunk_iters
+        from ..ops.solvers import Df64MultiSolver
 
         idx = np.atleast_1d(np.asarray(indices, dtype=int))
         amp2 = float(np.exp(2.0 * self.hyperpars[0]))
@@ -669,24 +652,13 @@ class LargeScaleGpLinearInverter:
 
         solver = getattr(self, "_df64_var_solver", None)
         if solver is None:
-            qc = self._DF64_VAR_COLS
-            # each data-space iteration sends 2*qc columns through the
-            # pair-arithmetic kernel (hi/lo per block column); the
-            # stored-f32 tier keeps full-length chunks (diagonal-only
+            # the stored-f32 tier keeps full-length chunks (diagonal-only
             # preconditioner — see the training-solver construction)
-            cost = (190.0 + 40.0 * 2 * qc) / 230.0
-            chunk = df64_chunk_iters(
-                self._n_padded,
-                matvecs_per_iter=0.1 * cost
-                if self._entries_f32 is not None
-                else cost,
-            )
             solver = Df64MultiSolver(
                 self._data_matmat64,
                 M=lambda R, sig: R / sig[:, None],
                 M_args=(self._sig64,),
                 matmat_args=(self._A64, *self._df64_op_args()),
-                restart_every=chunk,
                 **self._df64_fast_kwargs("matmat"),
             )
             self._df64_var_solver = solver
@@ -702,8 +674,8 @@ class LargeScaleGpLinearInverter:
             # all query counts (zero columns converge instantly)
             B = np.zeros((self.M, qc))
             B[:, : stop - start] = AK
-            # the pair-arithmetic operator's own ~1e-8 relative noise
-            # floors the achievable residual: a tighter data-space tol
+            # 1e-8 relative is ample for a variance quadratic form: a
+            # tighter data-space tol
             # would spin to maxiter without gaining accuracy
             X, info = solver.solve(
                 jnp.asarray(B),

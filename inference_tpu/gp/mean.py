@@ -1,6 +1,6 @@
 """Mean functions for Gaussian-process regression.
 
-TPU-native rebuild of the reference mean classes
+JAX rebuild of the reference mean classes
 (reference: inference/gp/mean.py:5-126) with the same API
 (``pass_spatial_data``, ``estimate_hyperpar_bounds``, ``__call__``,
 ``build_mean``, ``mean_and_gradients``), implemented in jax.

@@ -1,6 +1,6 @@
 """Gaussian-process (Bayesian) optimisation.
 
-TPU-native rebuild of the reference ``GpOptimiser``
+JAX rebuild of the reference ``GpOptimiser``
 (reference: inference/gp/optimisation.py:14-292) with the same API:
 ``propose_evaluation`` maximises the acquisition by multistart BFGS with
 autodiff gradients (or differential evolution), ``add_evaluation`` appends
@@ -13,7 +13,6 @@ from inspect import isclass
 
 import numpy as np
 from scipy.optimize import differential_evolution, fmin_l_bfgs_b
-import matplotlib.pyplot as plt
 
 from .regression import GpRegressor
 from .covariance import CovarianceFunction, SquaredExponential
@@ -39,7 +38,7 @@ class GpOptimiser:
     :param optimizer: "bfgs" (host multistart L-BFGS-B), "diffev"
         (differential evolution), or "device" (all starts optimised in
         parallel on device via a vmapped BFGS, one dispatch per proposal —
-        the fast path on remote accelerators).
+        the fast path on an accelerator).
     :param n_processes: accepted for API compatibility (runs serially
         against the accelerator).
     """
@@ -130,9 +129,9 @@ class GpOptimiser:
 
         With ``optimizer="device"`` the refit is DEFERRED and fused into
         the next ``propose_evaluation`` as a single device dispatch (refit
-        multistart + Cholesky/alpha state + acquisition multistart) — on a
-        remote accelerator each separate dispatch costs a network round
-        trip, and the eager path spends 4-5 of them per iteration. Note
+        multistart + Cholesky/alpha state + acquisition multistart) — each
+        separate dispatch costs a device round trip, and the eager path
+        spends 4-5 of them per iteration. Note
         that ``self.gp`` is stale between the two calls; the public
         surfaces (``__call__``, ``plot_results``, the history
         attributes, the next ``add_evaluation``) flush the pending refit
@@ -454,7 +453,7 @@ class GpOptimiser:
 
         # operands cast to the GP working dtype: uncast float64 inputs
         # under jax_enable_x64 would promote the whole fused program
-        # (Cholesky included) to TPU-emulated float64
+        # (Cholesky included) to float64
         wd = gp._x_dev.dtype
         out = fused(
             jnp.asarray(z0_fit, wd), jnp.asarray(lo_f, wd),
@@ -519,6 +518,8 @@ class GpOptimiser:
         right (output parity with reference: optimisation.py:251-292)."""
         self._ensure_current()
         from ..utils.figures import finish_figure, series_with_markers_panel
+
+        import matplotlib.pyplot as plt
 
         fig = plt.figure(figsize=(10, 4))
         maxvals = np.maximum.accumulate(self.y)

@@ -1,6 +1,6 @@
 """Gaussian-process regression.
 
-TPU-native rebuild of the reference ``GpRegressor``
+JAX rebuild of the reference ``GpRegressor``
 (reference: inference/gp/regression.py:16-612). API parity: constructor
 signature, ``__call__`` returning per-point means and standard deviations,
 ``gradient`` / ``spatial_derivatives`` / ``build_posterior`` /
@@ -38,6 +38,25 @@ from scipy.optimize import differential_evolution, fmin_l_bfgs_b
 from .covariance import CovarianceFunction, SquaredExponential
 from ..ops.linalg import identity_like
 from .mean import MeanFunction, ConstantMean
+
+
+# padded size from which the closed-form LML backward wins on the GPU
+# (measured at N = 2,048, 8,192 and 16,384: 1.2-3.0x over the native
+# factorisation's autodiff VJP and ahead of the blocked factor; PERF.md
+# "Cholesky and LML backward variants"). Float64 only: in float32 its
+# explicit K^-1 carries kappa * eps32 error into the gradient (measured
+# 1.4e-1 relative at N = 16,384, against 5.6e-3 through autodiff).
+_ANALYTIC_FROM_N = 2048
+
+
+def auto_gradient_path(n: int, dtype) -> str:
+    """The ``cholesky="auto"`` choice for the gradient programs (LML and
+    LOO value+gradient) at padded size ``n`` and working ``dtype``: "xla"
+    (native factorisation, autodiff VJP) or "analytic" (native forward,
+    closed-form LML backward, float64 from n >= 2048)."""
+    if jnp.dtype(dtype) == jnp.float64 and n >= _ANALYTIC_FROM_N:
+        return "analytic"
+    return "xla"
 
 
 class GpRegressor:
@@ -94,21 +113,17 @@ class GpRegressor:
         identical to the unpadded computation.
 
     :param cholesky: \
-        Factorisation backend for the N x N training matrix: "xla" (the
-        backend's expander), "blocked" (statically-unrolled MXU-matmul
+        Factorisation backend for the N x N training matrix: "xla"
+        (``jnp.linalg.cholesky``), "blocked" (statically-unrolled matmul
         panels, ``ops.linalg.blocked_cholesky``), an int panel width for
-        the blocked factor, "analytic" (expander forward + closed-form
+        the blocked factor, "analytic" (native forward + closed-form
         LML backward ``Q = (alpha alpha^T - K^-1)/2`` via the blocked
         triangular inverse — R&W eq. 5.9, the same identity the
         reference evaluates on the host at
         inference/gp/regression.py:544-567), or "auto" (default): the
-        measured per-program policy — on TPU, the expander for
-        forward-only factorisations and the analytic backward for the
-        marginal-likelihood gradient program at n >= 3072 (1.5x the
-        blocked factor's autodiff VJP at N=16,384 on chip — BENCH_NOTES
-        "Analytic LML gradient"), with the blocked factor inside the
-        remaining gradient programs (LOO); on other backends, always
-        the native factorisation with autodiff.
+        native factorisation for forward-only programs, and for the
+        gradient programs the path ``auto_gradient_path`` picks from the
+        padded size and the dtype.
     """
 
     def __init__(
@@ -129,10 +144,9 @@ class GpRegressor:
         cholesky="auto",
     ):
         # working dtype for the device arrays/compiled programs. The
-        # default tracks jax x64 mode (float64 on CPU test runs, float32
+        # default tracks jax x64 mode (float64 when it is enabled, float32
         # otherwise); pass dtype="float32" explicitly to keep a large-N
-        # model in fast float32 under an x64-enabled process — on the TPU
-        # backend an emulated-float64 Cholesky at N >= 16k is unusable
+        # model in fast float32 under an x64-enabled process
         self._dtype = (
             jnp.dtype(dtype) if dtype is not None else None
         )
@@ -146,17 +160,8 @@ class GpRegressor:
                 f"'blocked', 'analytic' or a positive panel width (int), "
                 f"but {cholesky!r} was given."
             )
-        # factorisation backend for the N x N training matrix: "xla" uses
-        # the backend expander; "blocked" (or an int panel width) routes
-        # through ops.linalg.blocked_cholesky, which expresses the O(N^3)
-        # trailing updates as HIGHEST-precision MXU matmuls. Measured on
-        # chip (benchmarks/cholesky_bench.py): the expander's FORWARD
-        # factorisation is at least as fast at every size, but its VJP
-        # loses to the blocked factor's explicit-matmul VJP from N=4096
-        # up (1.2x) through N=16,384 (2.8x) — so "auto" keeps the
-        # expander for forward-only programs and switches the gradient
-        # programs to the blocked factor at n >= 3072 on the TPU backend
-        # (see _build_compiled_functions).
+        # factorisation backend for the N x N training matrix (see the
+        # class docstring and _build_compiled_functions)
         self._cholesky = cholesky
         self.cov = kernel() if isclass(kernel) else kernel
         self.mean = mean() if isclass(mean) else mean
@@ -368,8 +373,8 @@ class GpRegressor:
         # ALL data (x, y, the error covariance 'sig', the padding mask) is
         # passed as runtime arguments rather than captured in closures:
         # captured arrays are baked into the compiled program as constants.
-        # Large constants blow up the HLO payload (an N x N constant broke
-        # remote compilation at N = 8192); small ones are inlined as
+        # Large constants blow up the compiled program (an N x N constant
+        # is embedded in it at full size); small ones are inlined as
         # literals, which changes the program hash on every data update and
         # defeats compilation reuse across ``update_data`` refits.
 
@@ -381,26 +386,14 @@ class GpRegressor:
             return lambda K: blocked_cholesky(K, block=blk)
 
         n_pad = int(self._x_dev.shape[0])
+        grad_path = self._cholesky
+        if grad_path == "auto":
+            grad_path = auto_gradient_path(n_pad, self._x_dev.dtype)
         if self._cholesky == "auto":
-            # measured on a v5e chip (benchmarks/cholesky_bench.py,
-            # BENCH_NOTES "Blocked vs XLA Cholesky"): for FORWARD-only
-            # factorisations the XLA expander wins from N=8k up (19
-            # TFLOP/s at N=16,384 vs ~13 blocked) and ties below, but its
-            # VJP collapses with N — value+grad 30/147/1099 ms at
-            # N=4096/8192/16384 where the blocked factor's
-            # explicit-matmul VJP (jax.checkpoint per panel) runs
-            # 25/79/392 ms. The expander wins value+grad only at
-            # N <= 2048 (15 vs 17 ms at 1024, 17 vs 19 at 2048), so the
-            # gradient programs switch to the blocked factor at n >= 3072
-            # while forward-only programs stay on the expander. The
-            # policy is chip-measured: non-TPU backends (LAPACK forward
-            # + a cheap VJP, and slow compilation of the unrolled
-            # panels) keep the default factorisation everywhere.
-            on_tpu = jax.default_backend() == "tpu"
             chol_fwd = jnp.linalg.cholesky
             chol_grad = (
                 make_blocked(2048)
-                if on_tpu and n_pad >= 3072
+                if grad_path == "blocked"
                 else jnp.linalg.cholesky
             )
         elif self._cholesky in ("xla", "analytic"):
@@ -453,10 +446,7 @@ class GpRegressor:
             needs (per-point LOO variances are 1/diag(K^-1)) is built by
             the blocked triangular inverse + gram product instead of
             ``cho_solve`` of an identity — autodiff then flows through
-            plain matmuls. Measured on chip
-            (benchmarks/loo_grad_experiment.py): 1.9x at N=8192 (367 ->
-            196 ms/eval) and at N=16,384 the cho_solve gradient program
-            fails outright (runtime OOM) where this one runs (982 ms)."""
+            plain matmuls (``benchmarks/loo_grad_experiment.py``)."""
             from ..ops.linalg import blocked_tril_inverse, tril_gram
 
             def loo(theta, x, y, sig, m, jitter=0.0):
@@ -490,13 +480,11 @@ class GpRegressor:
             host, inference/gp/regression.py:544-567), so instead of
             autodiffing through the factorisation the backward computes
             ``K^-1 = L^-T L^-1`` with the blocked triangular inverse +
-            triangular gram product — pure HIGHEST-precision MXU matmuls
-            (same n^3 model flops as the Cholesky VJP, measured 1.5x
-            faster at N=16,384 on chip: BENCH_NOTES "Analytic LML
-            gradient") — and delegates the hyperparameter pullback to
-            the assembly VJP (the Pallas covariance kernel's custom
-            backward). The forward factorisation drops back to the XLA
-            expander (the measured forward winner)."""
+            triangular gram product — pure HIGHEST-precision matmuls,
+            the same n^3 model flops as the Cholesky VJP — and delegates
+            the pullback to every input (hyperparameters, data, noise,
+            mask, jitter) to the assembly VJP. The forward factorisation
+            is the native one."""
             from ..ops.linalg import blocked_tril_inverse, tril_gram
 
             def assemble(theta, x, y, sig, m, jitter):
@@ -531,28 +519,21 @@ class GpRegressor:
                 theta, x, y, sig, m, jitter, L, v, ok = res
                 alpha = solve_triangular(L.T, v, lower=False)
                 # panel width: keep the statically-unrolled inverse/gram
-                # at <= 8 block rows — the n=32,768 program fails REMOTE
-                # COMPILATION with 2048-wide panels (16 rows, ~500
-                # unrolled matmuls) but compiles and runs at 4096 (1.72
-                # s/eval warm, ~62% of the f32-HIGHEST ceiling — the
-                # size round 4 recorded as OOM under autodiff)
+                # at <= 8 block rows (~130 unrolled matmuls) so its
+                # compilation stays bounded at large n
                 n = L.shape[0]
                 blk = 2048 * max(1, -(-n // (8 * 2048)))
                 X = blocked_tril_inverse(L, block=blk)
                 iK = tril_gram(X, block=blk)
                 Q = 0.5 * (jnp.outer(alpha, alpha) - iK)
-                _, pull = jax.vjp(
-                    lambda th: assemble(th, x, y, sig, m, jitter), theta
-                )
-                (th_bar,) = pull((Q, -alpha))
-                th_bar = jnp.where(ok, th_bar, 0.0) * g
-                return (
-                    th_bar,
-                    jnp.zeros_like(x),
-                    jnp.zeros_like(y),
-                    jnp.zeros_like(sig),
-                    jnp.zeros_like(m),
-                    jnp.zeros_like(jnp.asarray(jitter)),
+                # the value depends on the inputs only through (K, r):
+                # dL/dK = Q and dL/dr = -alpha, so the assembly VJP gives
+                # every input's cotangent (unused ones are dead code
+                # under jit)
+                _, pull = jax.vjp(assemble, theta, x, y, sig, m, jitter)
+                return tuple(
+                    jnp.where(ok, c, jnp.zeros_like(c)) * g
+                    for c in pull((Q, -alpha))
                 )
 
             core.defvjp(fwd, bwd)
@@ -566,21 +547,14 @@ class GpRegressor:
         # raw (unjitted) objectives kept for composition into larger
         # compiled programs — those all differentiate the objective
         # (vmapped multistart fit), so they carry the gradient-path factor.
-        # The marginal-likelihood gradient uses the analytic backward when
-        # the auto policy selects it (TPU, n >= 3072) or on request.
-        use_analytic = self._cholesky == "analytic" or (
-            self._cholesky == "auto"
-            and jax.default_backend() == "tpu"
-            and n_pad >= 3072
-        )
+        use_analytic = grad_path == "analytic"
         self._lml_raw = (
             make_lml_analytic() if use_analytic else make_lml(chol_grad)
         )
         self._loo_raw = make_loo(chol_grad, tril_iK=use_analytic)
 
-        # value-only public entry points use the forward-path factor (the
-        # XLA expander is the measured winner when no VJP is taken);
-        # gradient programs use the blocked factor per the policy above
+        # value-only public entry points use the forward-path factor;
+        # gradient programs use the gradient-path factor chosen above
         lml_jit = jax.jit(make_lml(chol_fwd))
         lml_grad_jit = jax.jit(jax.value_and_grad(self._lml_raw, argnums=0))
         loo_jit = jax.jit(make_loo(chol_fwd))
@@ -596,9 +570,7 @@ class GpRegressor:
 
         def fit_state(theta, x, y, sig, m):
             """K_xx, mean, Cholesky factor and alpha for given
-            hyperparameters — one compiled program (eager op-by-op execution
-            round-trips the N x N intermediates through the host on remote
-            backends)."""
+            hyperparameters — one compiled program."""
             K_xx = apply_mask(add_sig(cov.matrix(x, theta[cov_slc]), sig), m)
             mu = mean.vector(x, theta[mean_slc])
             L = chol_fwd(K_xx)
@@ -615,7 +587,7 @@ class GpRegressor:
 
         def predict(q, x, L, alpha, cov_pars, mean_pars, m):
             K_qx = cov(q, x, cov_pars) * m[None, :]
-            # full float32 precision (TPU matmuls default to bfloat16)
+            # full float32 precision (no TF32 rounding)
             mu_q = jnp.dot(
                 K_qx, alpha, precision=jax.lax.Precision.HIGHEST
             ) + jax.vmap(lambda p: mean.point(p, mean_pars, x))(q)
@@ -913,9 +885,8 @@ class GpRegressor:
 
         This replaces the reference's serial host multistart
         (reference: inference/gp/regression.py:482-504) with one device
-        dispatch: on a remote accelerator the host loop pays a network
-        round-trip per objective evaluation, while the device multistart
-        pays one.
+        dispatch: the host loop pays a device round-trip per objective
+        evaluation, while the device multistart pays one.
 
         :param starts: number of parallel starting positions.
         :param seed: RNG seed for the start positions.
@@ -938,7 +909,7 @@ class GpRegressor:
         # the start/bound operands must match the working dtype: under
         # jax_enable_x64 a bare asarray traces them as float64, promoting
         # theta and with it the whole objective (Cholesky included) to
-        # emulated f64 — exactly what dtype="float32" exists to avoid
+        # f64 — exactly what dtype="float32" exists to avoid
         wd = self._x_dev.dtype
         if polish == "device":
             _, _, z_best = fused(

@@ -1,6 +1,6 @@
 """Compiled affine-invariant ensemble (Goodman & Weare stretch-move) kernel.
 
-TPU-native rebuild of the reference ``EnsembleSampler`` update
+JAX rebuild of the reference ``EnsembleSampler`` update
 (reference: inference/mcmc/ensemble.py:182-210). The reference advances
 walkers **sequentially** against the live ensemble; here the standard
 red/black half-ensemble variant is used (same stationary distribution,
@@ -172,7 +172,7 @@ def make_ensemble_step(
 def run_steps(step, state, n_steps: int, store: bool = True):
     """Scan ``step`` for ``n_steps`` iterations. With ``store`` (default)
     the per-step outputs are stacked and returned; with ``store=False``
-    nothing is materialised in HBM beyond the final state."""
+    nothing is materialised in device memory beyond the final state."""
     if store:
         return lax.scan(lambda s, _: step(s), state, None, length=n_steps)
     return lax.scan(

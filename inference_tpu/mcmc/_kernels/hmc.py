@@ -1,6 +1,6 @@
 """Compiled Hamiltonian Monte-Carlo kernel.
 
-TPU-native rebuild of the reference HMC step
+JAX rebuild of the reference HMC step
 (reference: inference/mcmc/hmc/__init__.py:127-194). The entire sampling run
 compiles to one ``lax.scan``:
 
@@ -160,9 +160,12 @@ def make_hmc_step(
                 r0 = mass_sample(k_mom, dtype)
             h0 = kinetic_energy(r0) - state.logp
 
-            u = jax.random.uniform(k_steps, dtype=dtype)
+            # the jitter only sets an integer count: drawn and evaluated
+            # in float32 whatever the working dtype, so a float32 and a
+            # float64 run of the same key take the same number of steps
+            u = jax.random.uniform(k_steps, dtype=jnp.float32)
             n_steps = (
-                state.steps.astype(dtype) * (1 + (u - 0.5) * 0.2)
+                state.steps.astype(jnp.float32) * (1 + (u - 0.5) * 0.2)
             ).astype(jnp.int32)
 
             t, r = leapfrog(state.theta, r0, n_steps, epsilon, inv_temp)
@@ -239,7 +242,7 @@ def make_hmc_step(
 def run_steps(step, state, n_steps: int, store: bool = True):
     """Scan ``step`` for ``n_steps`` transitions. With ``store`` (default)
     the per-step outputs are stacked and returned; with ``store=False``
-    the scan emits no outputs at all — nothing is materialised in HBM
+    the scan emits no outputs at all — nothing is materialised in device memory
     beyond the final state (the maximum-throughput path)."""
     if store:
         return lax.scan(lambda s, _: step(s), state, None, length=n_steps)

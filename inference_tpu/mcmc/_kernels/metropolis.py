@@ -1,6 +1,6 @@
 """Compiled Metropolis / Gibbs / PCA-Gibbs kernels.
 
-TPU-native rebuild of the reference Metropolis-family step loops
+JAX rebuild of the reference Metropolis-family step loops
 (reference: inference/mcmc/gibbs.py:288-307,627-656 and pca.py:150-183).
 The repeat-until-accept inner loops become ``lax.while_loop``s, the
 componentwise Gibbs sweep a ``lax.fori_loop``, and per-parameter proposal
@@ -381,7 +381,7 @@ def make_pca_step(
 def run_steps(step, state, n_steps: int, store: bool = True):
     """Scan ``step`` for ``n_steps`` transitions. With ``store`` (default)
     the per-step outputs are stacked and returned; with ``store=False``
-    the scan emits no outputs at all — nothing is materialised in HBM
+    the scan emits no outputs at all — nothing is materialised in device memory
     beyond the final state (the maximum-throughput path)."""
     if store:
         return lax.scan(lambda s, _: step(s), state, None, length=n_steps)

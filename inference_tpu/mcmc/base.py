@@ -1,6 +1,6 @@
 """Shared host-side facade for all samplers.
 
-TPU-native rebuild of the reference ``MarkovChain`` ABC
+JAX rebuild of the reference ``MarkovChain`` ABC
 (reference: inference/mcmc/base.py:14-296). The user-facing API is preserved
 (``advance``, ``run_for``, ``get_parameter/get_probabilities/get_sample`` with
 burn/thin slicing, ``get_marginal``, ``get_interval``, plot wrappers, the
@@ -72,7 +72,7 @@ class MarkovChain(ABC):
         t_start = time()
         if not getattr(self, "display_progress", True):
             # no progress display: run the minimal set of scan chunks
-            # (every host round-trip costs real latency on remote devices)
+            # (every host round-trip costs device latency)
             self._advance_n(m)
             self.ProgressPrinter.percent_final(t_start, m)
             return

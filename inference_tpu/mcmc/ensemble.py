@@ -1,6 +1,6 @@
 """Affine-invariant ensemble sampler.
 
-TPU-native rebuild of the reference ``EnsembleSampler``
+JAX rebuild of the reference ``EnsembleSampler``
 (reference: inference/mcmc/ensemble.py:12-411). The user-facing API is
 preserved (constructor, ``advance(iterations)``, ``get_*`` with burn/thin,
 ``mode``, ``plot_diagnostics``, ``.npz`` save/load); the walker updates are
@@ -14,7 +14,6 @@ from time import time
 import numpy as np
 import jax
 import jax.numpy as jnp
-import matplotlib.pyplot as plt
 
 from ..utils import (
     Bounds,
@@ -382,6 +381,8 @@ class EnsembleSampler(MarkovChain):
             )
             rates = accepted.cumsum(axis=0).T / x[None, :]
         from ..utils.figures import finish_figure, trace_bundle_panel
+
+        import matplotlib.pyplot as plt
 
         fig = plt.figure(figsize=(10, 4))
         trace_bundle_panel(

@@ -1,6 +1,6 @@
 """Metropolis-Hastings and Gibbs samplers.
 
-TPU-native rebuild of the reference ``MetropolisChain`` / ``GibbsChain``
+JAX rebuild of the reference ``MetropolisChain`` / ``GibbsChain``
 (reference: inference/mcmc/gibbs.py:220-656). The user-facing API is
 preserved (constructor signature, ``advance``, ``get_*`` burn/thin slicing,
 ``set_non_negative`` / ``set_boundaries``, ``mode``, diagnostics, ``.npz``
@@ -19,7 +19,6 @@ from warnings import warn
 
 import numpy as np
 import jax.numpy as jnp
-import matplotlib.pyplot as plt
 
 from ..utils import (
     ChainProgressPrinter,
@@ -346,6 +345,8 @@ class MetropolisChain(MarkovChain):
             for i in range(self.n_parameters)
         ]
         probs = self._consolidated_probs()
+
+        import matplotlib.pyplot as plt
 
         fig = plt.figure(figsize=(12, 9))
         logprob_history_panel(

@@ -1,6 +1,6 @@
 """Hamiltonian Monte-Carlo sampler.
 
-TPU-native rebuild of the reference ``HamiltonianChain``
+JAX rebuild of the reference ``HamiltonianChain``
 (reference: inference/mcmc/hmc/__init__.py:14-469). The user-facing API is
 preserved; the sampling loop compiles to a single ``lax.scan`` on device
 (see ``inference_tpu.mcmc._kernels.hmc``), with gradients supplied by
@@ -12,7 +12,6 @@ collapse into autodiff when the posterior is jax-traceable.
 import numpy as np
 import jax
 import jax.numpy as jnp
-import matplotlib.pyplot as plt
 
 from ...utils import (
     Bounds,
@@ -390,6 +389,8 @@ class HamiltonianChain(MarkovChain):
             for i in range(self.n_parameters)
         ]
         probs = self._consolidated_probs()
+
+        import matplotlib.pyplot as plt
 
         fig = plt.figure(figsize=(12, 9))
         logprob_history_panel(

@@ -1,6 +1,6 @@
 """Particle-mass abstractions for HMC kinetic energy.
 
-TPU-native rebuild of the reference mass classes
+JAX rebuild of the reference mass classes
 (reference: inference/mcmc/hmc/mass.py:9-117). Validation happens eagerly on
 the host; the velocity / momentum-sampling maps are pure jax closures handed
 to the compiled HMC kernel.

@@ -1,6 +1,6 @@
 """PCA-Gibbs sampler.
 
-TPU-native rebuild of the reference ``PcaChain``
+JAX rebuild of the reference ``PcaChain``
 (reference: inference/mcmc/pca.py:13-299): Gibbs sweeps along the
 eigenvectors of the sample covariance matrix. The sweep itself runs compiled
 on device (``make_pca_step``); the periodic covariance re-estimation and
@@ -14,7 +14,6 @@ from copy import copy
 from warnings import warn
 
 import numpy as np
-import matplotlib.pyplot as plt
 from scipy.linalg import eigh
 
 import jax.numpy as jnp
@@ -149,6 +148,8 @@ class PcaChain(MetropolisChain):
 
     def directions_diagnostics(self):
         """Plot the eigenvector-angle convergence history."""
+        import matplotlib.pyplot as plt
+
         for i in range(self.n_parameters):
             prods = [v[i] for v in self.angles_history]
             plt.plot(self.update_history, prods, ".-")

@@ -1,6 +1,6 @@
 """Likelihood functors (Gaussian, Cauchy, Logistic).
 
-TPU-native rebuild of the reference likelihood classes
+JAX rebuild of the reference likelihood classes
 (reference: inference/likelihoods.py:9-274). Behavioural parity:
 
 - ``__call__(theta)`` returns the log-likelihood given model parameters.

@@ -1,6 +1,6 @@
 """Posterior composition of a likelihood and a prior.
 
-TPU-native rebuild of the reference ``Posterior``
+JAX rebuild of the reference ``Posterior``
 (reference: inference/posterior.py:8-105). The composed object is a pure
 jax-traceable functor, so it can be handed straight to the samplers and
 differentiated by HMC via autodiff.

@@ -1,6 +1,6 @@
 """Prior distribution functors (Gaussian, Exponential, Uniform, Joint).
 
-TPU-native rebuild of the reference prior classes
+JAX rebuild of the reference prior classes
 (reference: inference/priors.py:14-563). Behavioural parity:
 
 - ``__call__(theta)`` / ``gradient(theta)`` / ``cost`` / ``cost_gradient``.

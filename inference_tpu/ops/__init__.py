@@ -1,8 +1,7 @@
-"""Low-level compute ops: MXU-friendly pairwise-distance / covariance
-assembly (with Pallas TPU kernels for the large-N hot path), device
-linear-algebra helpers (``linalg``), double-float (two-float32)
-arithmetic and the fused pair-precision covariance matvec (``df64``),
-and the mixed-precision conjugate-gradient family (``solvers``)."""
+"""Low-level compute ops: pairwise-distance / covariance assembly
+(``pairwise``), device linear-algebra helpers (``linalg``), the float64
+covariance matvecs and entry stores of the df64 tier (``df64``), and the
+mixed-precision conjugate-gradient family (``solvers``)."""
 
 from .pairwise import scaled_sq_distances, sqexp_covariance
 from .linalg import add_diagonal, identity_like
@@ -12,7 +11,6 @@ from .solvers import (
     df64_pcg,
     Df64Solver,
     Df64MultiSolver,
-    df64_chunk_iters,
 )
 from .df64 import (
     sqexp_matvec_df64,
@@ -38,7 +36,6 @@ __all__ = [
     "df64_pcg",
     "Df64Solver",
     "Df64MultiSolver",
-    "df64_chunk_iters",
     "sqexp_matvec_df64",
     "sqexp_matmat_df64",
     "sqexp_matmat_rect_df64",

@@ -1,120 +1,29 @@
-"""Double-float (two-float32) arithmetic and the df64 covariance matvec.
+"""The df64 covariance tier: squared-exponential matvecs, entry stores
+and contractions evaluated in native float64.
 
-TPU hardware has no native float64; XLA's emulated f64 builds programs the
-remote backend cannot hold at large N. This module provides the middle
-path the small-noise GP regime needs (see BENCH_NOTES and
-``benchmarks/df64_matvec_experiment.py``): each quantity is carried as an
-unevaluated pair of float32 values ``(hi, lo)`` with ``value = hi + lo``
-and ``|lo| <= ulp(hi)/2`` — roughly 48 bits of significand, evaluated
-entirely with float32 VPU ops.
+Every entry point takes the pre-scaled coordinates ``us = x / l`` as a
+float32 pair ``(hi, lo)`` with ``us = hi + lo`` exactly (``split_f64``),
+so callers keep a float64-accurate copy of the data in float32 storage,
+and returns float64. Entries are evaluated row block by row block
+(``lax.map``), so no ``N x N`` float64 temporary exists beyond one
+block; the stored tiers keep the entries as a float32 pair (8 bytes per
+entry, float64-accurate to ~2^-48) or rounded to one float32 word
+(4 bytes per entry, 2^-24 quantisation).
 
-The round-2 experiment isolated the error budget of the float32 covariance
-matvec: compensated summation and hi/lo *product* splitting gain nothing,
-because the 1.2e-5 error is the float32 evaluation of the kernel entries
-themselves (the ``d^2`` accumulation and the exp argument). The lever is
-therefore evaluating the **entries** in double-float — which is what
-``sqexp_matvec_df64`` below does, fused into a single Pallas kernel:
+Padding contract: every row count is a multiple of ``_PAD`` (128); callers
+pad with rows whose right-hand-side entries are zero, which are inert.
 
-- pairwise displacements of pre-scaled coordinate *pairs* (error-free
-  two-sum subtraction),
-- squares and the dimension sum in pair arithmetic,
-- a pair-arithmetic exponential (``df_exp_neg``) — the TPU float32 exp
-  intrinsic is only ~4e-6 accurate (measured 37 ulps on this chip), so the
-  argument reduction ``a = k ln2 + r`` and the series reconstruction are
-  done explicitly in pair arithmetic (~2e-8 relative),
-- entry x vector products with an error-free two-product,
-- compensated (pair) accumulation over data points, reduced by a pairwise
-  tree so no float32 rounding chain ever exceeds a few operations.
-
-The result is a matvec with ~1e-8-level relative error instead of the
-plain float32 path's eps32-scaled entry noise (1.2e-5 at N=8k) — three
-orders of magnitude, with no float64 program anywhere.
-
-The error-free transformations (Knuth two-sum, Veltkamp split, Dekker
-two-product) rely on IEEE round-to-nearest float32 ops that are not
-reassociated; XLA and Mosaic preserve floating-point semantics, and the
-unit tests assert the error-free properties directly on device.
-
-References: Dekker (1971), "A floating-point technique for extending the
-available precision"; the reference library sidesteps all of this by
-running on host float64 (reference: inference/gp/regression.py:239-244).
+The reference library evaluates the same quantities in host float64
+(reference: inference/gp/regression.py:239-244).
 """
-
-import contextlib
-import functools
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import lax
 
-
-# --------------------------------------------------------------------- #
-# error-free transformations (float32, no FMA required)
-# --------------------------------------------------------------------- #
-def two_sum(a, b):
-    """Knuth two-sum: s + e == a + b exactly, s = fl(a + b). 6 flops."""
-    s = a + b
-    bb = s - a
-    e = (a - (s - bb)) + (b - bb)
-    return s, e
-
-
-def fast_two_sum(a, b):
-    """Dekker two-sum requiring |a| >= |b| (or a == 0): 3 flops.
-
-    WARNING: XLA's CPU algebraic simplifier rewrites this pattern's error
-    term to zero when ``a`` is a broadcast constant (measured in this
-    repo's test suite); the branch-free Knuth ``two_sum`` survives every
-    backend tested, so all pair renormalisations below use ``two_sum``
-    even where the Dekker precondition holds. Kept for documentation and
-    for callers that control their compilation path."""
-    s = a + b
-    e = b - (s - a)
-    return s, e
-
-
-def veltkamp_split(a):
-    """Split a float32 into 12 high + 12 low significand bits, exactly."""
-    c = a * jnp.asarray(4097.0, a.dtype)  # 2**12 + 1
-    hi = c - (c - a)
-    return hi, a - hi
-
-
-def two_prod(a, b):
-    """Dekker two-product: p + e == a * b exactly. 17 flops."""
-    p = a * b
-    ah, al = veltkamp_split(a)
-    bh, bl = veltkamp_split(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
-
-
-# --------------------------------------------------------------------- #
-# double-float (pair) arithmetic
-# --------------------------------------------------------------------- #
-def df_add(xh, xl, yh, yl):
-    """Pair + pair (Dekker add2): ~11 flops, relative error ~2^-47."""
-    s, e = two_sum(xh, yh)
-    e = e + (xl + yl)
-    return two_sum(s, e)
-
-
-def df_sub(xh, xl, yh, yl):
-    return df_add(xh, xl, -yh, -yl)
-
-
-def df_mul(xh, xl, yh, yl):
-    """Pair * pair (Dekker mul2): ~24 flops."""
-    p, e = two_prod(xh, yh)
-    e = e + (xh * yl + xl * yh)
-    return two_sum(p, e)
-
-
-def df_mul_f32(xh, xl, y):
-    """Pair * float32: ~21 flops."""
-    p, e = two_prod(xh, y)
-    e = e + xl * y
-    return two_sum(p, e)
+_PAD = 128  # row-count multiple required by every entry point
+_HI = lax.Precision.HIGHEST
 
 
 def split_f64(a):
@@ -125,605 +34,139 @@ def split_f64(a):
     return hi, lo
 
 
-# ln2 as a float32 pair (hi + lo matches float64 ln2 to ~1e-17)
-_LN2_HI = np.float32(0.6931472)
-_LN2_LO = np.float32(np.log(2.0) - np.float64(np.float32(0.6931472)))
-_INV_LN2 = np.float32(1.0 / np.log(2.0))
-# Cody-Waite split of ln2: C1 carries only the top 15 significand bits
-# (0x3F317200), so k*C1 with |k| <= 127 is exact in float32; C2 is the
-# float32 remainder (|ln2 - C1 - C2| ~ 1e-13, irrelevant at the ~1e-8
-# target after multiplying by |k| <= 127)
-_LN2_C1 = np.float32(0.693145751953125)
-_LN2_C2 = np.float32(np.log(2.0) - 0.693145751953125)
-# Taylor coefficients of (exp(r) - 1 - r - r^2/2) / r^3 = 1/6 + r/24 + ...;
-# evaluated in plain float32 — the cube factor r^3 <= 0.0105 keeps the
-# rounding contribution ~1e-9 absolute (the r^2/2 term, 12x larger, is
-# carried exactly via a split square)
-_EXP_P = tuple(
-    np.float32(1.0 / __import__("math").factorial(k)) for k in range(8, 2, -1)
-)
-
-
-def df_exp_neg_parts(ah, al):
-    """
-    ``exp(a) = scale * (1 + q)`` for a non-positive pair argument, with
-    ``scale`` an exact power of two and ``q`` a pair, ~2e-8 relative — the
-    TPU float32 exp intrinsic is only ~4e-6 accurate (measured: 37 ulps),
-    far too coarse for double-float kernel entries, so the reduction and
-    reconstruction are done explicitly:
-
-        a = k ln2 + r,  |r| <= ln2/2
-        exp(a) = 2^k (1 + [r + r^2 P(r)])
-
-    Round-4 dataflow (this is the hot ~40% of the fused df64 kernels,
-    measured): the reduction is Cody-Waite — the argument is clamped to
-    [-88, 0] so ``|k| <= 127``, and ``C1`` (the top 15 significand bits
-    of ln2) makes ``k*C1`` exact and ``t = ah - k*C1`` exact by Sterbenz,
-    replacing the round-3 two-product/two-sum chain (~35 flops) with ~12.
-    The series is split as ``q = r + r^2/2 + r^3 P(r)``: the quadratic
-    term rides an exact single-split Dekker square (Sterbenz-cheap), and
-    only the cube term — at most 0.0105 — is plain float32, bounding its
-    rounding at ~1e-9 absolute. (A first cut evaluated all of
-    ``r^2 P(r)`` in plain float32; the two full-magnitude roundings cost
-    ~7e-9 per entry, which a kappa ~ 1e4 CG solve amplified past its
-    convergence floor — measured, hence the split.)
-    Arguments below -87 (entries < 2e-38) get
-    ``scale = 0``; the clamp also keeps the polynomial argument bounded
-    for arbitrarily negative inputs (no Inf*0 = NaN through the mask).
-
-    The "1 +" is deliberately left to the caller: XLA's constant folding
-    corrupts error-free transformations that involve a literal constant
-    (measured: ``two_sum(ones_like(x), x)`` returns a wrong error word
-    under jit on CPU), so the final add must use runtime data — e.g. fuse
-    it into a product ``exp(a) * v = scale * (v + q*v)``.
-
-    This is the single-chunk view of ``_exp_parts_m`` (the kernels run
-    the same code over interleaved chunk tuples — see the multi-chunk
-    core below).
-    """
-    (scale,), (qh,), (ql,) = _exp_parts_m((ah,), (al,))
-    return scale, qh, ql
-
-
-def df_exp_neg(ah, al):
-    """``exp(a)`` for a non-positive pair argument, as a pair (~1e-8
-    relative; plain float32 accuracy below exp(a) ~ 1e-31 where the low
-    word's scaling underflows). See ``df_exp_neg_parts``."""
-    scale, qh, ql = df_exp_neg_parts(ah, al)
-    # the optimization barrier keeps XLA from constant-folding the literal
-    # one into the error-free transform (which corrupts its error word)
-    one = jax.lax.optimization_barrier(jnp.ones_like(ah))
-    s, se = two_sum(one, qh)
-    return s * scale, (se + ql) * scale
-
-
-# --------------------------------------------------------------------- #
-# multi-chunk (interleaved-ILP) kernel core
-#
-# Mosaic emits vector instructions essentially in program order; a
-# direct probe (benchmarks/vpu_probe.py, v5e chip) issues one serial
-# dependent f32 chain at ~200 GFLOP/s but 4 interleaved independent
-# chains at ~1.25 TFLOP/s — and the round-3 kernels, whose error-free
-# transforms are almost entirely serial dependency chains, measured
-# ~70 GFLOP/s. The helpers below therefore operate on TUPLES of chunk
-# arrays (the kernels slice each (TJ, TI) tile into _CHUNKS sublane
-# slices): every elementary op is applied across all chunks before the
-# next op, so consecutive instructions are independent and the VPU
-# pipeline stays full. The single-value functions above are one-chunk
-# views of the same code — one implementation, no drift.
-# --------------------------------------------------------------------- #
-_CHUNKS = 4
-
-
-def _two_sum_m(A, B):
-    """Chunked Knuth two-sum (see ``two_sum``)."""
-    S = tuple(a + b for a, b in zip(A, B))
-    BB = tuple(s - a for s, a in zip(S, A))
-    T1 = tuple(s - bb for s, bb in zip(S, BB))
-    T2 = tuple(a - t1 for a, t1 in zip(A, T1))
-    T3 = tuple(b - bb for b, bb in zip(B, BB))
-    E = tuple(t2 + t3 for t2, t3 in zip(T2, T3))
-    return S, E
-
-
-def _veltkamp_split_m(A):
-    """Chunked Veltkamp split (see ``veltkamp_split``)."""
-    f = A[0].dtype.type(4097.0)  # 2**12 + 1
-    C = tuple(a * f for a in A)
-    D = tuple(c - a for c, a in zip(C, A))
-    HI = tuple(c - d for c, d in zip(C, D))
-    LO = tuple(a - h for a, h in zip(A, HI))
-    return HI, LO
-
-
-def _two_prod_m(A, B):
-    """Chunked Dekker two-product (see ``two_prod``)."""
-    P = tuple(a * b for a, b in zip(A, B))
-    AH, AL = _veltkamp_split_m(A)
-    BH, BL = _veltkamp_split_m(B)
-    E = tuple(ah * bh - p for ah, bh, p in zip(AH, BH, P))
-    E = tuple(e + ah * bl for e, ah, bl in zip(E, AH, BL))
-    E = tuple(e + al * bh for e, al, bh in zip(E, AL, BH))
-    E = tuple(e + al * bl for e, al, bl in zip(E, AL, BL))
-    return P, E
-
-
-def _df_mul_f32_m(XH, XL, Y):
-    """Chunked pair * float32 with renormalisation (see ``df_mul_f32``)."""
-    P, E = _two_prod_m(XH, Y)
-    E = tuple(e + xl * y for e, xl, y in zip(E, XL, Y))
-    return _two_sum_m(P, E)
-
-
-def _exp_parts_m(AH, AL):
-    """Chunked ``df_exp_neg_parts`` — the algorithm documented there."""
-    f32 = AH[0].dtype
-    c88, chalf = f32.type(-88.0), f32.type(0.5)
-    c1 = jnp.asarray(_LN2_C1, f32)
-    c2 = jnp.asarray(_LN2_C2, f32)
-    inv_ln2 = f32.type(_INV_LN2)
-    two, one = f32.type(2.0), f32.type(1.0)
-
-    AC = tuple(jnp.maximum(ah, c88) for ah in AH)
-    K = tuple(jnp.floor(ac * inv_ln2 + chalf) for ac in AC)
-    T = tuple(ac - k * c1 for ac, k in zip(AC, K))
-    RH, RE = _two_sum_m(T, tuple(-k * c2 for k in K))
-    RL = tuple(re + al for re, al in zip(RE, AL))
-
-    P = tuple(jnp.full_like(rh, _EXP_P[0]) for rh in RH)
-    for c in _EXP_P[1:]:
-        P = tuple(p * rh + c for p, rh in zip(P, RH))
-    HH, HL = _veltkamp_split_m(RH)
-    R2H = tuple(rh * rh for rh in RH)
-    R2E = tuple(
-        (hh * hh - r2h) + two * (hh * hl) + hl * hl
-        for hh, hl, r2h in zip(HH, HL, R2H)
-    )
-    T3 = tuple((r2h * rh) * p for r2h, rh, p in zip(R2H, RH, P))
-    QH, QE = _two_sum_m(RH, tuple(chalf * r2h for r2h in R2H))
-    QE = tuple(
-        qe + (chalf * r2e + t3) for qe, r2e, t3 in zip(QE, R2E, T3)
-    )
-    QL = tuple(
-        qe + rl * (one + qh + t3)
-        for qe, rl, qh, t3 in zip(QE, RL, QH, T3)
-    )
-    QH, QL = _two_sum_m(QH, QL)
-
-    KI = tuple(jnp.clip(k, -126.0, 0.0).astype(jnp.int32) for k in K)
-    SC = tuple(
-        jax.lax.bitcast_convert_type((ki + 127) << 23, jnp.float32).astype(
-            f32
-        )
-        for ki in KI
-    )
-    c87 = f32.type(-87.0)
-    SC = tuple(
-        jnp.where(ah < c87, jnp.zeros_like(sc), sc)
-        for ah, sc in zip(AH, SC)
-    )
-    return SC, QH, QL
-
-
-def _tile_sq_distance_m(
-    uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, d, tj, ti, chunks
-):
-    """Chunked pair-arithmetic squared distances: the ``_tile_sq_distance``
-    algorithm over ``chunks`` sublane slices of the tj axis (the column
-    points are shared across chunks). Returns tuples of (tj/chunks, ti)
-    arrays whose low words are unnormalised error accumulations."""
-    cs = tj // chunks
-    D2H = tuple(jnp.zeros((cs, ti), jnp.float32) for _ in range(chunks))
-    D2E = tuple(jnp.zeros((cs, ti), jnp.float32) for _ in range(chunks))
-    two = jnp.float32(2.0)
-    for k in range(d):
-        AH = tuple(
-            uj_hi_ref[c * cs : (c + 1) * cs, k][:, None]
-            for c in range(chunks)
-        )
-        AL = tuple(
-            uj_lo_ref[c * cs : (c + 1) * cs, k][:, None]
-            for c in range(chunks)
-        )
-        nbh = -ui_hi_ref[:, k][None, :]
-        bl = ui_lo_ref[:, k][None, :]
-        S, E = _two_sum_m(AH, (nbh,) * chunks)
-        DL = tuple(e + (al - bl) for e, al in zip(E, AL))
-        HH, HL = _veltkamp_split_m(S)
-        P = tuple(s * s for s in S)
-        PE = tuple(
-            ((hh * hh - p) + two * (hh * hl)) + hl * hl
-            for hh, hl, p in zip(HH, HL, P)
-        )
-        PE = tuple(pe + two * (s * dl) for pe, s, dl in zip(PE, S, DL))
-        D2H, AE = _two_sum_m(D2H, P)
-        D2E = tuple(
-            d2e + (ae + pe) for d2e, ae, pe in zip(D2E, AE, PE)
-        )
-    return D2H, D2E
-
-
-# --------------------------------------------------------------------- #
-# fused df64 squared-exponential matvec
-# --------------------------------------------------------------------- #
-_TJ = 128  # data-point (reduction) tile: sublane axis
-_TI = 128  # output-row tile: lane axis
-
-
-def _tree_pair_reduce(hi, lo, stop: int = 8):
-    """Reduce pair arrays over axis 0 by pairwise halving — log2(TJ/stop)
-    compensated adds per element instead of a TJ-long rounding chain.
-    Stops at ``stop`` rows (the TPU sublane minimum for an output block);
-    the final few adds happen outside the kernel in float64, exactly."""
-    n = hi.shape[0]
-    while n > stop:
-        half = n // 2
-        hi, lo = df_add(hi[:half], lo[:half], hi[half:], lo[half:])
-        n = half
-    return hi, lo
-
-
-def _tile_sq_distance(uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, d, tj, ti):
-    """Pair-arithmetic squared distances for one (tj, ti) tile — THE
-    single d^2 evaluation all three pallas kernels (fused matvec, fused
-    matmat, entries precompute) share, so the delicate error-free
-    transform sequence cannot drift between copies. ``d`` is a static
-    python int (small); the loop unrolls.
-
-    Returns an UNNORMALISED pair ``(d2h, d2e)``: the high word is built
-    by error-free two-sums, every sub-ulp correction accumulates in a
-    plain float32 error word (|d2e| <= a few ulps of d2h, so its own
-    rounding sits at ~2^-48 relative — the pair target). Round 4
-    replaced the round-3 full pair arithmetic (renormalising two-sum
-    after every add, Dekker two-product with both operands split) with
-    this: per dimension ~30 flops instead of ~53, same accuracy, for
-    the hottest loop in the df64 tier (consumers feed the result
-    additively into ``df_exp_neg_parts``, which never needed a
-    normalised low word). Single-chunk view of ``_tile_sq_distance_m``."""
-    (d2h,), (d2e,) = _tile_sq_distance_m(
-        uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, d, tj, ti, chunks=1
-    )
-    return d2h, d2e
-
-
-def _matvec_kernel(d: int, tj: int, ti: int, chunks: int = _CHUNKS):
-    """Pallas kernel body for grid (n_i, n_j): accumulate
-    sum_j exp(-0.5 * d2_ij) * v_j into a pair accumulator, elementwise
-    over a (tj, ti) tile, reducing over tj only once per output tile.
-    The tile is processed as ``chunks`` interleaved sublane slices (see
-    the multi-chunk core note)."""
-    cs = tj // chunks
-
-    def kernel(
-        uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, v_ref,
-        out_hi_ref, out_lo_ref, acc_hi, acc_lo,
-    ):
-        j = pl.program_id(1)
-        n_j = pl.num_programs(1)
-
-        @pl.when(j == 0)
-        def _():
-            acc_hi[:] = jnp.zeros_like(acc_hi)
-            acc_lo[:] = jnp.zeros_like(acc_lo)
-
-        D2H, D2E = _tile_sq_distance_m(
-            uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, d, tj, ti, chunks
-        )
-
-        # exp of the pair argument, itself in pair arithmetic — the TPU
-        # float32 exp intrinsic (~4e-6 relative) would dominate the budget.
-        # The entry*vector product fuses the exponential's "1 +" term:
-        #   E_ij v_j = scale * (v_j + q_ij v_j)
-        # so no literal constant enters an error-free transform (XLA
-        # constant folding corrupts those — see df_exp_neg_parts).
-        half = jnp.float32(-0.5)
-        SC, QH, QL = _exp_parts_m(
-            tuple(half * x for x in D2H), tuple(half * x for x in D2E)
-        )
-
-        V = tuple(v_ref[c * cs : (c + 1) * cs] for c in range(chunks))
-        # renormalised pair product (an un-renormalised product chain
-        # measurably corrupts under downstream fusion: see the test note
-        # on compiler instruction selection), then a cheap accumulate:
-        # exact high-word two-sum with the corrections riding a plain-f32
-        # error word. The accumulator low word stays unnormalised across
-        # the j loop — its magnitude is ~n_j ulps of the high word, so
-        # its own rounding is far below the pair target; the final tree
-        # reduce renormalises.
-        TVH, TVL = _df_mul_f32_m(QH, QL, V)
-        VB = tuple(
-            jnp.broadcast_to(v, tvh.shape) for v, tvh in zip(V, TVH)
-        )
-        S, SE = _two_sum_m(VB, TVH)
-        PH = tuple(s * sc for s, sc in zip(S, SC))
-        PE = tuple((se + tvl) * sc for se, tvl, sc in zip(SE, TVL, SC))
-        ACC = tuple(acc_hi[c * cs : (c + 1) * cs] for c in range(chunks))
-        AH, AE = _two_sum_m(ACC, PH)
-        for c in range(chunks):
-            lo = acc_lo[c * cs : (c + 1) * cs]
-            acc_hi[c * cs : (c + 1) * cs] = AH[c]
-            acc_lo[c * cs : (c + 1) * cs] = lo + (AE[c] + PE[c])
-
-        @pl.when(j == n_j - 1)
-        def _():
-            rh, rl = _tree_pair_reduce(acc_hi[:], acc_lo[:])
-            out_hi_ref[:] = rh
-            out_lo_ref[:] = rl
-
-    return kernel
-
-
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-
-def _x64_off_ctx():
-    """Trace f32 pallas kernels with x64 disabled: under jax_enable_x64 the
-    grid/index types trace as i64, which Mosaic cannot legalize."""
-    try:
-        from jax._src.config import enable_x64
-
-        return enable_x64(False)
-    except ImportError:  # pragma: no cover
-        return contextlib.nullcontext()
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "tj", "ti"))
-def _sqexp_matvec_df64_pallas(uh, ul, v, interpret=False, tj=_TJ, ti=_TI):
-    n, d = uh.shape
-    n_j = n // tj
-    n_i = n // ti
-
-    kernel = _matvec_kernel(d, tj, ti)
-    with _x64_off_ctx():
-        out_hi, out_lo = pl.pallas_call(
-            kernel,
-            out_shape=(
-                jax.ShapeDtypeStruct((n_i * 8, ti), jnp.float32),
-                jax.ShapeDtypeStruct((n_i * 8, ti), jnp.float32),
-            ),
-            grid=(n_i, n_j),
-            in_specs=[
-                pl.BlockSpec((tj, d), lambda i, j: (j, 0)),
-                pl.BlockSpec((tj, d), lambda i, j: (j, 0)),
-                pl.BlockSpec((ti, d), lambda i, j: (i, 0)),
-                pl.BlockSpec((ti, d), lambda i, j: (i, 0)),
-                pl.BlockSpec((tj, 1), lambda i, j: (j, 0)),
-            ],
-            out_specs=(
-                pl.BlockSpec((8, ti), lambda i, j: (i, 0)),
-                pl.BlockSpec((8, ti), lambda i, j: (i, 0)),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((tj, ti), jnp.float32),
-                pltpu.VMEM((tj, ti), jnp.float32),
-            ],
-            # the pair arithmetic is a long straight-line dataflow whose
-            # temporaries the compiler stack-allocates; the default 16 MB
-            # scoped-vmem budget is too small at useful tile sizes
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024,
-                dimension_semantics=("parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(uh, ul, uh, ul, v.reshape(n, 1))
-    # the last 8 partial rows are combined exactly in float64 (cheap:
-    # O(N) elementwise, no N x N f64 program)
-    ph = out_hi.reshape(n_i, 8, ti).astype(jnp.float64)
-    plo = out_lo.reshape(n_i, 8, ti).astype(jnp.float64)
-    y64 = (ph + plo).sum(axis=1).reshape(n)
-    return y64
-
-
-def _matmat_kernel(d: int, q: int, tj: int, ti: int, chunks: int = _CHUNKS):
-    """Multi-RHS variant of ``_matvec_kernel``: the pair-arithmetic
-    kernel ENTRIES (the expensive d^2 + exp evaluation) are computed once
-    per tile and amortised over ``q`` right-hand-side columns — a
-    q-column matmat costs a small multiple of one matvec, not q of them.
-    Chunked like the matvec kernel."""
-    cs = tj // chunks
-
-    def kernel(
-        uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, v_ref,
-        out_hi_ref, out_lo_ref, acc_hi, acc_lo,
-    ):
-        j = pl.program_id(1)
-        n_j = pl.num_programs(1)
-
-        @pl.when(j == 0)
-        def _():
-            acc_hi[:] = jnp.zeros_like(acc_hi)
-            acc_lo[:] = jnp.zeros_like(acc_lo)
-
-        D2H, D2E = _tile_sq_distance_m(
-            uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, d, tj, ti, chunks
-        )
-        half = jnp.float32(-0.5)
-        SC, QH, QL = _exp_parts_m(
-            tuple(half * x for x in D2H), tuple(half * x for x in D2E)
-        )
-
-        # per-column product + compensated accumulate; the column loop is
-        # statically unrolled (q is small) and reuses the tile's entries
-        for k in range(q):
-            V = tuple(
-                v_ref[c * cs : (c + 1) * cs, k][:, None]
-                for c in range(chunks)
-            )
-            # same renormalised product + cheap accumulate as the
-            # matvec kernel (see note there)
-            TVH, TVL = _df_mul_f32_m(QH, QL, V)
-            VB = tuple(
-                jnp.broadcast_to(v, tvh.shape) for v, tvh in zip(V, TVH)
-            )
-            S, SE = _two_sum_m(VB, TVH)
-            PH = tuple(s * sc for s, sc in zip(S, SC))
-            PE = tuple(
-                (se + tvl) * sc for se, tvl, sc in zip(SE, TVL, SC)
-            )
-            ACC = tuple(
-                acc_hi[k, c * cs : (c + 1) * cs] for c in range(chunks)
-            )
-            AH, AE = _two_sum_m(ACC, PH)
-            for c in range(chunks):
-                lo = acc_lo[k, c * cs : (c + 1) * cs]
-                acc_hi[k, c * cs : (c + 1) * cs] = AH[c]
-                acc_lo[k, c * cs : (c + 1) * cs] = lo + (AE[c] + PE[c])
-
-        @pl.when(j == n_j - 1)
-        def _():
-            for k in range(q):
-                rh, rl = _tree_pair_reduce(acc_hi[k], acc_lo[k])
-                out_hi_ref[k] = rh
-                out_lo_ref[k] = rl
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "tj", "ti"))
-def _sqexp_matmat_df64_pallas(uh, ul, V, interpret=False, tj=_TJ, ti=_TI):
-    return _sqexp_matmat_rect_df64_pallas(
-        uh, ul, uh, ul, V, interpret=interpret, tj=tj, ti=ti
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "tj", "ti"))
-def _sqexp_matmat_rect_df64_pallas(
-    rh, rl, ch, cl, V, interpret=False, tj=_TJ, ti=_TI
-):
-    """Rectangular core: output rows come from the ``(n_rows, d)`` pair
-    ``(rh, rl)``, the reduction axis from the ``(n_cols, d)`` pair
-    ``(ch, cl)`` — ``Y[i, k] = sum_j exp(-0.5 ||r_i - c_j||^2) V[j, k]``.
-    The square kernel is the ``rows is cols`` special case; the row-sharded
-    multi-chip matvec gives each device its row block with the full data
-    replicated as columns."""
-    n_rows, d = rh.shape
-    n_cols = ch.shape[0]
-    q = V.shape[1]
-    n_j = n_cols // tj
-    n_i = n_rows // ti
-
-    kernel = _matmat_kernel(d, q, tj, ti)
-    with _x64_off_ctx():
-        out_hi, out_lo = pl.pallas_call(
-            kernel,
-            out_shape=(
-                jax.ShapeDtypeStruct((q, n_i * 8, ti), jnp.float32),
-                jax.ShapeDtypeStruct((q, n_i * 8, ti), jnp.float32),
-            ),
-            grid=(n_i, n_j),
-            in_specs=[
-                pl.BlockSpec((tj, d), lambda i, j: (j, 0)),
-                pl.BlockSpec((tj, d), lambda i, j: (j, 0)),
-                pl.BlockSpec((ti, d), lambda i, j: (i, 0)),
-                pl.BlockSpec((ti, d), lambda i, j: (i, 0)),
-                pl.BlockSpec((tj, q), lambda i, j: (j, 0)),
-            ],
-            out_specs=(
-                pl.BlockSpec((q, 8, ti), lambda i, j: (0, i, 0)),
-                pl.BlockSpec((q, 8, ti), lambda i, j: (0, i, 0)),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((q, tj, ti), jnp.float32),
-                pltpu.VMEM((q, tj, ti), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024,
-                dimension_semantics=("parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(ch, cl, rh, rl, V)
-    ph = out_hi.reshape(q, n_i, 8, ti).astype(jnp.float64)
-    plo = out_lo.reshape(q, n_i, 8, ti).astype(jnp.float64)
-    Y64 = (ph + plo).sum(axis=2).reshape(q, n_rows)
-    return Y64.T  # (n_rows, q)
-
-
-def sqexp_matmat_df64(us_hi, us_lo, V, interpret: bool = None):
-    """
-    ``Y = E V`` for a block of right-hand sides: the multi-column variant
-    of ``sqexp_matvec_df64`` (same double-float entry evaluation, same
-    padding contract), amortising the expensive pair-arithmetic entry
-    evaluation across the columns of ``V`` (n, q). Returns float64
-    (n, q). Column counts beyond ~16 start to pressure VMEM with the
-    (q, TJ, TI) pair accumulators — chunk the columns at the call site.
-    """
+def split_pair(a):
+    """Device (traceable) split of a float64 array into a (hi, lo) float32
+    pair with ``hi + lo == a`` to ~2^-48. The optimization barrier keeps
+    XLA from folding the float64 -> float32 -> float64 round trip of
+    ``hi`` (which excess-precision simplification may do on the GPU),
+    which would leave ``lo`` zero and the pair only float32-accurate."""
+    hi = lax.optimization_barrier(a.astype(jnp.float32))
+    return hi, (a - hi.astype(jnp.float64)).astype(jnp.float32)
+
+
+def _require_x64(name):
     if not jax.config.read("jax_enable_x64"):
         raise ValueError(
-            "sqexp_matmat_df64 requires jax_enable_x64 (the partial-pair "
-            "combine and the returned matrix are float64)"
+            f"{name} requires jax_enable_x64 (the entries and the returned "
+            f"arrays are float64)"
         )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    uh = jnp.asarray(us_hi, jnp.float32)
-    ul = jnp.asarray(us_lo, jnp.float32)
-    V = jnp.asarray(V, jnp.float32)
+
+
+def _check_rows(name, n):
+    if n % _PAD != 0:
+        raise ValueError(
+            f"[ {name} error ] n ({n}) must be a multiple of {_PAD}; pad "
+            f"the data rows (zero-padded right-hand-side entries are inert)."
+        )
+
+
+def _check_block(name, V, n):
     if V.ndim != 2:
         raise ValueError(
-            "[ sqexp_matmat_df64 error ] V must be 2D (n, q); use "
-            "sqexp_matvec_df64 for single vectors."
+            f"[ {name} error ] V must be 2D (n, q); reshape single vectors "
+            f"to (n, 1)."
         )
-    n, d = uh.shape
-    if n % _TJ != 0:
+    if V.shape[0] != n:
         raise ValueError(
-            f"[ sqexp_matmat_df64 error ] n ({n}) must be a multiple of "
-            f"{_TJ}; pad the data rows (zero-padded v entries are inert)."
+            f"[ {name} error ] V has {V.shape[0]} rows but the operator has "
+            f"{n} columns."
         )
-    return _sqexp_matmat_df64_pallas(uh, ul, V, interpret=interpret)
 
 
-def sqexp_matmat_rect_df64(
-    rows_hi, rows_lo, cols_hi, cols_lo, V, interpret: bool = None
-):
+def _pair64(hi, lo):
+    return jnp.asarray(hi, jnp.float32).astype(jnp.float64) + jnp.asarray(
+        lo, jnp.float32
+    ).astype(jnp.float64)
+
+
+def _by_row_blocks(fn, *row_arrays):
+    """``fn`` over ``_PAD``-row blocks of ``row_arrays`` (each
+    (n_rows, ...)), results concatenated along rows. Every block has the
+    same shape whatever the row count, so a row's result does not depend
+    on how many rows are evaluated with it: square, rectangular and
+    row-sharded calls agree bitwise."""
+    n_rows = row_arrays[0].shape[0]
+    blocks = tuple(
+        a.reshape(n_rows // _PAD, _PAD, *a.shape[1:]) for a in row_arrays
+    )
+    out = lax.map(lambda xs: fn(*xs), blocks)
+    return jax.tree.map(lambda o: o.reshape(n_rows, *o.shape[2:]), out)
+
+
+def _entries64(rows, cols):
+    """``exp(-0.5 ||r_i - c_j||^2)`` in float64 for a row block, summed in
+    the difference form (exact for scaled coordinates of modest size)."""
+    d2 = sum(
+        (rows[:, k, None] - cols[None, :, k]) ** 2 for k in range(rows.shape[1])
+    )
+    return jnp.exp(-0.5 * d2)
+
+
+@jax.jit
+def _rect_matmat(rows, cols, V):
+    def block(r):
+        return jnp.dot(_entries64(r, cols), V, precision=_HI)
+
+    return _by_row_blocks(block, rows)
+
+
+def sqexp_matmat_rect_df64(rows_hi, rows_lo, cols_hi, cols_lo, V):
     """
-    Rectangular double-float matmat: ``Y[i, k] = sum_j E(r_i, c_j) V[j, k]``
-    with ``E(a, b) = exp(-0.5 ||a - b||^2)``, rows and columns drawn from
+    Rectangular matmat: ``Y[i, k] = sum_j E(r_i, c_j) V[j, k]`` with
+    ``E(a, b) = exp(-0.5 ||a - b||^2)``, rows and columns drawn from
     *different* pre-scaled coordinate pairs. This is the building block of
-    the row-sharded multi-chip matvec (each device evaluates its row block
+    the row-sharded multi-device matvec (each device evaluates its row block
     against the full data); the square ``sqexp_matmat_df64`` is the
     ``rows is cols`` case. Returns float64 ``(n_rows, q)``.
     """
-    if not jax.config.read("jax_enable_x64"):
-        raise ValueError(
-            "sqexp_matmat_rect_df64 requires jax_enable_x64 (the "
-            "partial-pair combine and the returned matrix are float64)"
-        )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    rh = jnp.asarray(rows_hi, jnp.float32)
-    rl = jnp.asarray(rows_lo, jnp.float32)
-    ch = jnp.asarray(cols_hi, jnp.float32)
-    cl = jnp.asarray(cols_lo, jnp.float32)
-    V = jnp.asarray(V, jnp.float32)
-    if V.ndim != 2:
-        raise ValueError(
-            "[ sqexp_matmat_rect_df64 error ] V must be 2D (n_cols, q)."
-        )
-    n_rows = rh.shape[0]
-    n_cols = ch.shape[0]
-    if V.shape[0] != n_cols:
-        raise ValueError(
-            f"[ sqexp_matmat_rect_df64 error ] V has {V.shape[0]} rows "
-            f"but there are {n_cols} column points."
-        )
-    if n_rows % _TI != 0 or n_cols % _TJ != 0:
-        raise ValueError(
-            f"[ sqexp_matmat_rect_df64 error ] row count ({n_rows}) must "
-            f"be a multiple of {_TI} and column count ({n_cols}) a "
-            f"multiple of {_TJ}; pad (zero-padded V entries are inert)."
-        )
-    return _sqexp_matmat_rect_df64_pallas(rh, rl, ch, cl, V, interpret=interpret)
+    name = "sqexp_matmat_rect_df64"
+    _require_x64(name)
+    rows = _pair64(rows_hi, rows_lo)
+    cols = _pair64(cols_hi, cols_lo)
+    V = jnp.asarray(V, jnp.float64)
+    _check_block(name, V, cols.shape[0])
+    _check_rows(name, rows.shape[0])
+    _check_rows(name, cols.shape[0])
+    return _rect_matmat(rows, cols, V)
 
 
-def sqexp_matmat_df64_sharded(us_hi, us_lo, V, mesh, interpret: bool = None):
+def sqexp_matmat_df64(us_hi, us_lo, V):
     """
-    Row-sharded multi-chip variant of ``sqexp_matmat_df64``: data rows
+    ``Y = E V`` for a block of right-hand sides ``V`` (n, q), with
+    ``E_ij = exp(-0.5 ||us_i - us_j||^2)`` evaluated in float64. Returns
+    float64 (n, q).
+    """
+    name = "sqexp_matmat_df64"
+    _require_x64(name)
+    us = _pair64(us_hi, us_lo)
+    V = jnp.asarray(V, jnp.float64)
+    _check_block(name, V, us.shape[0])
+    _check_rows(name, us.shape[0])
+    return _rect_matmat(us, us, V)
+
+
+def sqexp_matvec_df64(us_hi, us_lo, v):
+    """
+    ``y = E v`` with ``E_ij = exp(-0.5 ||us_i - us_j||^2)``, where the
+    pre-scaled coordinates ``us = x / lengthscales`` are supplied as a
+    float32 pair (from ``split_f64``). Returns a float64 vector. Requires
+    ``jax_enable_x64``.
+
+    Amplitude and diagonal terms are the caller's job. ``n`` must be a
+    multiple of 128 — callers pad with rows whose ``v`` entries are zero.
+    """
+    return sqexp_matmat_df64(us_hi, us_lo, jnp.reshape(v, (-1, 1)))[:, 0]
+
+
+def sqexp_matmat_df64_sharded(us_hi, us_lo, V, mesh):
+    """
+    Row-sharded multi-device variant of ``sqexp_matmat_df64``: data rows
     split over the (1D) ``mesh`` axis, each device evaluating its block of
-    ``E V`` with the rectangular kernel against the replicated full data
-    and right-hand sides — no cross-device communication beyond the input
-    gather, since every output row needs only its own reduction. Output is
-    row-sharded float64 ``(n, q)``; downstream elementwise solver algebra
-    partitions along the same axis. Traceable (usable inside jit).
+    ``E V`` against the replicated full data and right-hand sides — no
+    cross-device communication beyond the input gather, since every output
+    row needs only its own reduction. Output is row-sharded float64
+    ``(n, q)``; downstream elementwise solver algebra partitions along the
+    same axis. Traceable (usable inside jit).
     """
     from jax import shard_map
     from jax.sharding import PartitionSpec
@@ -731,17 +174,13 @@ def sqexp_matmat_df64_sharded(us_hi, us_lo, V, mesh, interpret: bool = None):
     axis = mesh.axis_names[0]
     n_dev = mesh.shape[axis]
     n = us_hi.shape[0]
-    if n % (n_dev * _TI) != 0:
+    if n % (n_dev * _PAD) != 0:
         raise ValueError(
             f"[ sqexp_matmat_df64_sharded error ] n ({n}) must split over "
-            f"{n_dev} devices into row blocks that are multiples of {_TI}."
+            f"{n_dev} devices into row blocks that are multiples of {_PAD}."
         )
-
-    def local(rh, rl, ch, cl, Vf):
-        return sqexp_matmat_rect_df64(rh, rl, ch, cl, Vf, interpret=interpret)
-
     f = shard_map(
-        local,
+        sqexp_matmat_rect_df64,
         mesh=mesh,
         in_specs=(
             PartitionSpec(axis, None),
@@ -756,108 +195,13 @@ def sqexp_matmat_df64_sharded(us_hi, us_lo, V, mesh, interpret: bool = None):
     return f(us_hi, us_lo, us_hi, us_lo, V)
 
 
-def sqexp_matvec_df64(us_hi, us_lo, v, interpret: bool = None):
-    """
-    ``y = E v`` with ``E_ij = exp(-0.5 ||us_i - us_j||^2)`` evaluated in
-    double-float precision, where the pre-scaled coordinates
-    ``us = x / lengthscales`` are supplied as a float32 pair (from
-    ``split_f64``). Returns the result as a float64 vector (the kernel
-    emits 8 float32 partial-pair rows per output tile; combining them is
-    O(N) elementwise float64 — cheap even on TPU). Requires
-    ``jax_enable_x64``.
-
-    Amplitude and diagonal terms are the caller's job (they are exact in
-    float64 outside the kernel). ``n`` must be a multiple of 128 (the
-    tile edge) — callers pad with rows whose ``v`` entries are zero.
-    """
-    if not jax.config.read("jax_enable_x64"):
-        raise ValueError(
-            "sqexp_matvec_df64 requires jax_enable_x64 (the partial-pair "
-            "combine and the returned vector are float64)"
-        )
-    if interpret is None:
-        # compiled Mosaic on TPU; the (slow, exact) interpreter elsewhere
-        # so CPU-mesh tests exercise the identical kernel logic
-        interpret = jax.default_backend() != "tpu"
-    uh = jnp.asarray(us_hi, jnp.float32)
-    ul = jnp.asarray(us_lo, jnp.float32)
-    v = jnp.asarray(v, jnp.float32)
-    n, d = uh.shape
-    if n % _TJ != 0:
-        raise ValueError(
-            f"[ sqexp_matvec_df64 error ] n ({n}) must be a multiple of "
-            f"{_TJ}; pad the data rows (zero-padded v entries are inert)."
-        )
-    return _sqexp_matvec_df64_pallas(uh, ul, v, interpret=interpret)
-
-
 # --------------------------------------------------------------------- #
-# stored-entries df64 matvec: precompute the pair entries once, then
-# every matvec skips the expensive d^2 + exp evaluation (~30 flops/entry
-# remain: one pair product + one compensated accumulate)
+# stored-entries tiers: evaluate the entries once, then every matvec is a
+# plain float64 contraction over the stored array
 # --------------------------------------------------------------------- #
-def _entries_kernel(d: int, tj: int, ti: int):
-    """Materialise the (tj, ti) tile of pair ENTRIES ``E = exp(-0.5 d2)``
-    — the same evaluation as ``_matvec_kernel``, written out instead of
-    contracted. The reconstruction ``E = scale + scale*q`` uses only
-    runtime operands (``scale * qh`` is exact: scale is a power of two),
-    so no literal constant enters an error-free transform."""
-
-    def kernel(uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, eh_ref, el_ref):
-        chunks = _CHUNKS
-        cs = tj // chunks
-        D2H, D2E = _tile_sq_distance_m(
-            uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, d, tj, ti, chunks
-        )
-        half = jnp.float32(-0.5)
-        SC, QH, QL = _exp_parts_m(
-            tuple(half * x for x in D2H), tuple(half * x for x in D2E)
-        )
-        S, SE = _two_sum_m(SC, tuple(sc * qh for sc, qh in zip(SC, QH)))
-        EH, EL = _two_sum_m(
-            S, tuple(se + sc * ql for se, sc, ql in zip(SE, SC, QL))
-        )
-        for c in range(chunks):
-            eh_ref[c * cs : (c + 1) * cs] = EH[c]
-            el_ref[c * cs : (c + 1) * cs] = EL[c]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "tj", "ti"))
-def _sqexp_entries_df64_pallas(uh, ul, interpret=False, tj=_TJ, ti=_TI):
-    n, d = uh.shape
-    kernel = _entries_kernel(d, tj, ti)
-    with _x64_off_ctx():
-        eh, el = pl.pallas_call(
-            kernel,
-            out_shape=(
-                jax.ShapeDtypeStruct((n, n), jnp.float32),
-                jax.ShapeDtypeStruct((n, n), jnp.float32),
-            ),
-            grid=(n // tj, n // ti),
-            in_specs=[
-                pl.BlockSpec((tj, d), lambda j, i: (j, 0)),
-                pl.BlockSpec((tj, d), lambda j, i: (j, 0)),
-                pl.BlockSpec((ti, d), lambda j, i: (i, 0)),
-                pl.BlockSpec((ti, d), lambda j, i: (i, 0)),
-            ],
-            out_specs=(
-                pl.BlockSpec((tj, ti), lambda j, i: (j, i)),
-                pl.BlockSpec((tj, ti), lambda j, i: (j, i)),
-            ),
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024,
-                dimension_semantics=("parallel", "parallel"),
-            ),
-            interpret=interpret,
-        )(uh, ul, uh, ul)
-    return eh, el
-
-
 def stored_entries_tier(n_padded: int, store):
     """The SINGLE storage policy for the df64 tiers — one place to
-    retune for a different chip. Returns:
+    retune for a different device memory size. Returns:
 
     - ``"pair"``  — store the full (E_hi, E_lo) float32 pair
       (8 bytes/entry, ~3.4 GB at n = 20480): matvecs carry NO error
@@ -883,7 +227,7 @@ def stored_entries_tier(n_padded: int, store):
             raise ValueError(
                 f"[ stored_entries_tier error ] store_entries=True "
                 f"requests the exact float32-PAIR entry store, which is "
-                f"limited to padded n <= 20480 (8 bytes/entry of HBM); "
+                f"limited to padded n <= 20480 (8 bytes/entry of device memory); "
                 f"got n_padded = {n_padded}. Use store_entries='f32' to "
                 f"opt into the quantised single-word tier, or 'auto'/"
                 f"False for the policy/fused paths."
@@ -891,357 +235,105 @@ def stored_entries_tier(n_padded: int, store):
         return "pair"
     if n_padded <= 20480:
         return "pair"
-    # 53,248 is N = 50k padded to 4096-blocks: 11.3 GB of f32 entries,
-    # leaving ~4 GB of HBM for the solver state and preconditioner
+    # 53,248 is N = 50k padded to 4096-blocks: 11.3 GB of f32 entries
     if n_padded <= 53248:
         return "f32"
     return None
 
 
-def sqexp_entries_df64(us_hi, us_lo, interpret: bool = None):
+@jax.jit
+def _entries_pair(us):
+    def block(r):
+        return split_pair(_entries64(r, us))
+
+    return _by_row_blocks(block, us)
+
+
+def sqexp_entries_df64(us_hi, us_lo):
     """
     Materialise ``E_ij = exp(-0.5 ||us_i - us_j||^2)`` as a float32 PAIR
-    ``(E_hi, E_lo)`` of (n, n) device arrays — 8 bytes/entry of HBM, so
-    this tier is for moderate N (~3.4 GB at n = 20480). Amortisation:
-    one precompute at the cost of ~one fused matvec buys every later
-    ``sqexp_stored_matvec_df64`` call the entry evaluation (the bulk of
-    the per-entry work), which dominates df64 CG solves.
+    ``(E_hi, E_lo)`` of (n, n) device arrays with ``E_hi + E_lo`` the
+    float64 entry to ~2^-48 — 8 bytes/entry, so this tier is for moderate
+    N (~3.4 GB at n = 20480). Every later ``sqexp_stored_matmat_df64``
+    call then skips the entry evaluation.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    uh = jnp.asarray(us_hi, jnp.float32)
-    ul = jnp.asarray(us_lo, jnp.float32)
-    n, d = uh.shape
-    if n % _TJ != 0:
-        raise ValueError(
-            f"[ sqexp_entries_df64 error ] n ({n}) must be a multiple of "
-            f"{_TJ}; pad the data rows."
-        )
-    return _sqexp_entries_df64_pallas(uh, ul, interpret=interpret)
+    name = "sqexp_entries_df64"
+    _require_x64(name)
+    us = _pair64(us_hi, us_lo)
+    _check_rows(name, us.shape[0])
+    return _entries_pair(us)
 
 
-def _stored_matmat_kernel(q: int, tj: int, ti: int, chunks: int = _CHUNKS):
-    """Contraction over stored pair entries: per tile, q pair products +
-    compensated accumulates — no entry evaluation. Chunked like the
-    fused kernels (see the multi-chunk core note)."""
-    cs = tj // chunks
-
-    def kernel(eh_ref, el_ref, v_ref, out_hi_ref, out_lo_ref, acc_hi, acc_lo):
-        j = pl.program_id(1)
-        n_j = pl.num_programs(1)
-
-        @pl.when(j == 0)
-        def _():
-            acc_hi[:] = jnp.zeros_like(acc_hi)
-            acc_lo[:] = jnp.zeros_like(acc_lo)
-
-        EH = tuple(eh_ref[c * cs : (c + 1) * cs] for c in range(chunks))
-        EL = tuple(el_ref[c * cs : (c + 1) * cs] for c in range(chunks))
-        for k in range(q):
-            V = tuple(
-                v_ref[c * cs : (c + 1) * cs, k][:, None]
-                for c in range(chunks)
-            )
-            # renormalised pair product + cheap accumulate: exact
-            # high-word two-sum into the accumulator with corrections
-            # riding a plain-f32 error word (renormalised once by the
-            # tree reduce) — saves the accumulate-side renormalisation
-            # of round 3's df_add (~29 vs ~35 flops/entry/column)
-            TVH, TVL = _df_mul_f32_m(EH, EL, V)
-            ACC = tuple(
-                acc_hi[k, c * cs : (c + 1) * cs] for c in range(chunks)
-            )
-            AH, AE = _two_sum_m(ACC, TVH)
-            for c in range(chunks):
-                lo = acc_lo[k, c * cs : (c + 1) * cs]
-                acc_hi[k, c * cs : (c + 1) * cs] = AH[c]
-                acc_lo[k, c * cs : (c + 1) * cs] = lo + (AE[c] + TVL[c])
-
-        @pl.when(j == n_j - 1)
-        def _():
-            for k in range(q):
-                rh, rl = _tree_pair_reduce(acc_hi[k], acc_lo[k])
-                out_hi_ref[k] = rh
-                out_lo_ref[k] = rl
-
-    return kernel
+@jax.jit
+def _entries_rounded(us):
+    return _by_row_blocks(lambda r: _entries64(r, us).astype(jnp.float32), us)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "tj", "ti"))
-def _sqexp_stored_matmat_pallas(eh, el, V, interpret=False, tj=_TJ, ti=_TI):
-    n = eh.shape[0]
-    q = V.shape[1]
-    n_j = n // tj
-    n_i = n // ti
-
-    kernel = _stored_matmat_kernel(q, tj, ti)
-    with _x64_off_ctx():
-        out_hi, out_lo = pl.pallas_call(
-            kernel,
-            out_shape=(
-                jax.ShapeDtypeStruct((q, n_i * 8, ti), jnp.float32),
-                jax.ShapeDtypeStruct((q, n_i * 8, ti), jnp.float32),
-            ),
-            grid=(n_i, n_j),
-            in_specs=[
-                pl.BlockSpec((tj, ti), lambda i, j: (j, i)),
-                pl.BlockSpec((tj, ti), lambda i, j: (j, i)),
-                pl.BlockSpec((tj, q), lambda i, j: (j, 0)),
-            ],
-            out_specs=(
-                pl.BlockSpec((q, 8, ti), lambda i, j: (0, i, 0)),
-                pl.BlockSpec((q, 8, ti), lambda i, j: (0, i, 0)),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((q, tj, ti), jnp.float32),
-                pltpu.VMEM((q, tj, ti), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024,
-                dimension_semantics=("parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(eh, el, V)
-    ph = out_hi.reshape(q, n_i, 8, ti).astype(jnp.float64)
-    plo = out_lo.reshape(q, n_i, 8, ti).astype(jnp.float64)
-    Y64 = (ph + plo).sum(axis=2).reshape(q, n)
-    return Y64.T  # (n, q)
-
-
-def sqexp_stored_matmat_df64(E_hi, E_lo, V, interpret: bool = None):
+def sqexp_entries_f32(us_hi, us_lo):
     """
-    ``Y = E V`` from STORED pair entries (``sqexp_entries_df64``):
-    float32 (n, q) in, float64 (n, q) out, same accuracy contract as
-    ``sqexp_matmat_df64`` (the entries are identical bits) at ~1/6 the
-    per-iteration flops. Accepts q = 1 columns for the matvec case.
+    Materialise ``fl32(exp(-0.5 ||us_i - us_j||^2))`` — the float64 entry
+    correctly ROUNDED to one float32 word — as an (n, n) device array:
+    4 bytes/entry, ~11.3 GB at n = 53,248. Unlike an entry evaluated IN
+    float32 (eps32-coherent d^2/exp noise, ~1.2e-5 at large N), the only
+    error here is the final 2^-24 quantisation.
     """
-    if not jax.config.read("jax_enable_x64"):
-        raise ValueError(
-            "sqexp_stored_matmat_df64 requires jax_enable_x64 (the "
-            "partial-pair combine and the returned matrix are float64)"
-        )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    name = "sqexp_entries_f32"
+    _require_x64(name)
+    us = _pair64(us_hi, us_lo)
+    _check_rows(name, us.shape[0])
+    return _entries_rounded(us)
+
+
+@jax.jit
+def _stored_pair_matmat(E_hi, E_lo, V):
+    def block(eh, el):
+        e = eh.astype(jnp.float64) + el.astype(jnp.float64)
+        return jnp.dot(e, V, precision=_HI)
+
+    return _by_row_blocks(block, E_hi, E_lo)
+
+
+def sqexp_stored_matmat_df64(E_hi, E_lo, V):
+    """
+    ``Y = E V`` from STORED pair entries (``sqexp_entries_df64``): (n, q)
+    in, float64 (n, q) out, the same accuracy as ``sqexp_matmat_df64``
+    without re-evaluating the entries. Accepts q = 1 columns for the
+    matvec case.
+    """
+    name = "sqexp_stored_matmat_df64"
+    _require_x64(name)
     E_hi = jnp.asarray(E_hi, jnp.float32)
     E_lo = jnp.asarray(E_lo, jnp.float32)
-    V = jnp.asarray(V, jnp.float32)
-    if V.ndim != 2:
-        raise ValueError(
-            "[ sqexp_stored_matmat_df64 error ] V must be 2D (n, q); "
-            "reshape single vectors to (n, 1)."
-        )
-    n = E_hi.shape[0]
-    if n % _TJ != 0:
-        raise ValueError(
-            f"[ sqexp_stored_matmat_df64 error ] n ({n}) must be a "
-            f"multiple of {_TJ}."
-        )
-    return _sqexp_stored_matmat_pallas(E_hi, E_lo, V, interpret=interpret)
+    V = jnp.asarray(V, jnp.float64)
+    _check_block(name, V, E_hi.shape[1])
+    _check_rows(name, E_hi.shape[0])
+    return _stored_pair_matmat(E_hi, E_lo, V)
 
 
-def sqexp_stored_matvec_df64(E_hi, E_lo, v, interpret: bool = None):
+def sqexp_stored_matvec_df64(E_hi, E_lo, v):
     """Single-vector convenience over ``sqexp_stored_matmat_df64``."""
-    return sqexp_stored_matmat_df64(
-        E_hi, E_lo, jnp.asarray(v).reshape(-1, 1), interpret=interpret
-    )[:, 0]
-
-# --------------------------------------------------------------------- #
-# stored-f32 tier: pair-ACCURATE entries rounded to one float32 word.
-#
-# The pair tier above costs 8 bytes/entry (caps out near n = 20480 on a
-# 16 GB chip); this tier stores only the correctly-rounded float32 high
-# word (4 bytes/entry, n up to ~51k) and contracts it with an exact
-# Dekker product + compensated pair accumulation, so the ONLY error
-# beyond float64 is the 2^-24 entry quantisation. A CG solve iterating
-# on this operator and refreshing its true residual through the fused
-# df64 kernel (ops/solvers.py::Df64MultiSolver matmat_fast) converges
-# like mixed-precision iterative refinement with a ~6e-8 operator —
-# each refresh contracts the error by ~kappa_precond * 6e-8 — instead
-# of stalling at the 1.2e-5 float32-EVALUATED-entry noise that made the
-# plain mixed tier insufficient in the small-noise regime.
-# --------------------------------------------------------------------- #
-def _entries_f32_kernel(d: int, tj: int, ti: int):
-    """``_entries_kernel`` writing only the correctly-rounded float32
-    entry (the renormalised pair's high word IS fl(E))."""
-
-    def kernel(uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, e_ref):
-        chunks = _CHUNKS
-        cs = tj // chunks
-        D2H, D2E = _tile_sq_distance_m(
-            uj_hi_ref, uj_lo_ref, ui_hi_ref, ui_lo_ref, d, tj, ti, chunks
-        )
-        half = jnp.float32(-0.5)
-        SC, QH, QL = _exp_parts_m(
-            tuple(half * x for x in D2H), tuple(half * x for x in D2E)
-        )
-        S, SE = _two_sum_m(SC, tuple(sc * qh for sc, qh in zip(SC, QH)))
-        EH, _ = _two_sum_m(
-            S, tuple(se + sc * ql for se, sc, ql in zip(SE, SC, QL))
-        )
-        for c in range(chunks):
-            e_ref[c * cs : (c + 1) * cs] = EH[c]
-
-    return kernel
+    return sqexp_stored_matmat_df64(E_hi, E_lo, jnp.reshape(v, (-1, 1)))[:, 0]
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "tj", "ti"))
-def _sqexp_entries_f32_pallas(uh, ul, interpret=False, tj=_TJ, ti=_TI):
-    n, d = uh.shape
-    kernel = _entries_f32_kernel(d, tj, ti)
-    with _x64_off_ctx():
-        e = pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((n, n), jnp.float32),
-            grid=(n // tj, n // ti),
-            in_specs=[
-                pl.BlockSpec((tj, d), lambda j, i: (j, 0)),
-                pl.BlockSpec((tj, d), lambda j, i: (j, 0)),
-                pl.BlockSpec((ti, d), lambda j, i: (i, 0)),
-                pl.BlockSpec((ti, d), lambda j, i: (i, 0)),
-            ],
-            out_specs=pl.BlockSpec((tj, ti), lambda j, i: (j, i)),
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024,
-                dimension_semantics=("parallel", "parallel"),
-            ),
-            interpret=interpret,
-        )(uh, ul, uh, ul)
-    return e
+@jax.jit
+def _stored_f32_matmat(E, V):
+    def block(e):
+        return jnp.dot(e.astype(jnp.float64), V, precision=_HI)
+
+    return _by_row_blocks(block, E)
 
 
-def sqexp_entries_f32(us_hi, us_lo, interpret: bool = None):
-    """
-    Materialise ``fl32(exp(-0.5 ||us_i - us_j||^2))`` — the pair-accurate
-    entry evaluation correctly ROUNDED to one float32 word — as an (n, n)
-    device array: 4 bytes/entry, ~11.3 GB at n = 53,248. Unlike an entry
-    evaluated IN float32 (eps32-coherent d^2/exp noise, ~1.2e-5 at large
-    N), the only error here is the final 2^-24 quantisation.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    uh = jnp.asarray(us_hi, jnp.float32)
-    ul = jnp.asarray(us_lo, jnp.float32)
-    n, d = uh.shape
-    if n % _TJ != 0:
-        raise ValueError(
-            f"[ sqexp_entries_f32 error ] n ({n}) must be a multiple of "
-            f"{_TJ}; pad the data rows."
-        )
-    return _sqexp_entries_f32_pallas(uh, ul, interpret=interpret)
-
-
-def _stored_f32_matmat_kernel(q: int, tj: int, ti: int, chunks: int = _CHUNKS):
-    """Contraction over stored float32 entries with an exact Dekker
-    product and compensated pair accumulation: the result is the float64
-    product of the STORED matrix with V to ~1e-15 — all remaining error
-    is the entries' own storage quantisation."""
-    cs = tj // chunks
-
-    def kernel(e_ref, v_ref, out_hi_ref, out_lo_ref, acc_hi, acc_lo):
-        j = pl.program_id(1)
-        n_j = pl.num_programs(1)
-
-        @pl.when(j == 0)
-        def _():
-            acc_hi[:] = jnp.zeros_like(acc_hi)
-            acc_lo[:] = jnp.zeros_like(acc_lo)
-
-        EH = tuple(e_ref[c * cs : (c + 1) * cs] for c in range(chunks))
-        for k in range(q):
-            V = tuple(
-                v_ref[c * cs : (c + 1) * cs, k][:, None]
-                for c in range(chunks)
-            )
-            # the product pair is renormalised before accumulation: an
-            # un-renormalised two-product chain measurably corrupts under
-            # downstream compiler fusion (see the matmat-columns test
-            # note on fma instruction selection)
-            TVH, TVE = _two_sum_m(*_two_prod_m(EH, V))
-            ACC = tuple(
-                acc_hi[k, c * cs : (c + 1) * cs] for c in range(chunks)
-            )
-            AH, AE = _two_sum_m(ACC, TVH)
-            for c in range(chunks):
-                lo = acc_lo[k, c * cs : (c + 1) * cs]
-                acc_hi[k, c * cs : (c + 1) * cs] = AH[c]
-                acc_lo[k, c * cs : (c + 1) * cs] = lo + (AE[c] + TVE[c])
-
-        @pl.when(j == n_j - 1)
-        def _():
-            for k in range(q):
-                rh, rl = _tree_pair_reduce(acc_hi[k], acc_lo[k])
-                out_hi_ref[k] = rh
-                out_lo_ref[k] = rl
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "tj", "ti"))
-def _sqexp_stored_f32_matmat_pallas(e, V, interpret=False, tj=_TJ, ti=_TI):
-    n = e.shape[0]
-    q = V.shape[1]
-    n_j = n // tj
-    n_i = n // ti
-
-    kernel = _stored_f32_matmat_kernel(q, tj, ti)
-    with _x64_off_ctx():
-        out_hi, out_lo = pl.pallas_call(
-            kernel,
-            out_shape=(
-                jax.ShapeDtypeStruct((q, n_i * 8, ti), jnp.float32),
-                jax.ShapeDtypeStruct((q, n_i * 8, ti), jnp.float32),
-            ),
-            grid=(n_i, n_j),
-            in_specs=[
-                pl.BlockSpec((tj, ti), lambda i, j: (j, i)),
-                pl.BlockSpec((tj, q), lambda i, j: (j, 0)),
-            ],
-            out_specs=(
-                pl.BlockSpec((q, 8, ti), lambda i, j: (0, i, 0)),
-                pl.BlockSpec((q, 8, ti), lambda i, j: (0, i, 0)),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((q, tj, ti), jnp.float32),
-                pltpu.VMEM((q, tj, ti), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024,
-                dimension_semantics=("parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(e, V)
-    ph = out_hi.reshape(q, n_i, 8, ti).astype(jnp.float64)
-    plo = out_lo.reshape(q, n_i, 8, ti).astype(jnp.float64)
-    Y64 = (ph + plo).sum(axis=2).reshape(q, n)
-    return Y64.T  # (n, q)
-
-
-def sqexp_stored_f32_matmat(E, V, interpret: bool = None):
+def sqexp_stored_f32_matmat(E, V):
     """
     ``Y = E V`` from STORED float32 entries (``sqexp_entries_f32``):
-    float32 (n, q) in, float64 (n, q) out. The contraction itself is
-    ~1e-15 accurate (exact products, compensated accumulation); the
-    operator error is the entries' 2^-24 storage quantisation — the
+    (n, q) in, float64 (n, q) out. The contraction is float64, so the
+    operator error is the entries' 2^-24 storage quantisation alone — the
     fast-iteration matvec of the stored-f32 df64 solve tier.
     """
-    if not jax.config.read("jax_enable_x64"):
-        raise ValueError(
-            "sqexp_stored_f32_matmat requires jax_enable_x64 (the "
-            "partial-pair combine and the returned matrix are float64)"
-        )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    name = "sqexp_stored_f32_matmat"
+    _require_x64(name)
     E = jnp.asarray(E, jnp.float32)
-    V = jnp.asarray(V, jnp.float32)
-    if V.ndim != 2:
-        raise ValueError(
-            "[ sqexp_stored_f32_matmat error ] V must be 2D (n, q); "
-            "reshape single vectors to (n, 1)."
-        )
-    n = E.shape[0]
-    if n % _TJ != 0:
-        raise ValueError(
-            f"[ sqexp_stored_f32_matmat error ] n ({n}) must be a "
-            f"multiple of {_TJ}."
-        )
-    return _sqexp_stored_f32_matmat_pallas(E, V, interpret=interpret)
+    V = jnp.asarray(V, jnp.float64)
+    _check_block(name, V, E.shape[1])
+    _check_rows(name, E.shape[0])
+    return _stored_f32_matmat(E, V)

@@ -36,12 +36,11 @@ def blocked_cholesky(
     """Right-looking blocked Cholesky, statically unrolled over block
     columns.
 
-    XLA's TPU Cholesky expander factors with small panels inside a
-    sequential loop that keeps the MXU underfed at large N. Here the
-    O(N^3) trailing updates are explicit (shrinking, statically-shaped)
-    HIGHEST-precision matmuls — exactly N^3/3 flops of MXU work — with
-    only the ``block x block`` diagonal factorisations left to the XLA
-    expander. Differentiable (composed of primitives with VJPs); with
+    The O(N^3) trailing updates are explicit (shrinking,
+    statically-shaped) HIGHEST-precision matmuls — exactly N^3/3 flops
+    of matrix-multiply work — with only the ``block x block`` diagonal
+    factorisations left to the native factorisation. Its autodiff VJP is
+    made of matmuls too. Differentiable (composed of primitives with VJPs); with
     ``remat`` each block step recomputes in the backward pass so peak
     memory stays O(N^2).
 
@@ -51,7 +50,7 @@ def blocked_cholesky(
         statically (keep N/block <= ~32 for sane compile times).
     :param method: how the off-diagonal panel is formed —
         ``"inv"`` explicitly inverts the diagonal factor (two small
-        triangular solves) so the panel is one MXU matmul: fastest, error
+        triangular solves) so the panel is one matmul: fastest, error
         ~cond(L_kk) * eps on the panel; ``"trsm"`` uses a triangular
         solve against the full panel: the textbook-stable choice, slower
         when XLA expands it sequentially.
@@ -118,10 +117,8 @@ def blocked_cholesky(
 
 def blocked_tril_inverse(L, block: int = 2048):
     """Explicit inverse of a lower-triangular matrix by blocked
-    forward substitution — every O(N^3) term is a HIGHEST-precision MXU
-    matmul (XLA's triangular solve with N right-hand sides runs a
-    sequential panel expansion that leaves the MXU underfed at large N;
-    this is the matmul-shaped route to ``L^-1`` used by the analytic
+    forward substitution — every O(N^3) term is a HIGHEST-precision
+    matmul (the matmul-shaped route to ``L^-1`` used by the analytic
     marginal-likelihood gradient).
 
     Block recurrence (padding embeds L as blockdiag(L, I)):
@@ -174,7 +171,7 @@ def tril_gram(X, block: int = 2048):
     zero blocks above the diagonal are never touched, so the flop count
     is n^3/3 instead of the dense product's n^3 (counting one matmul
     flop per multiply-add pair as 2). Used with ``blocked_tril_inverse``
-    to form ``K^-1 = L^-T L^-1`` as pure MXU work."""
+    to form ``K^-1 = L^-T L^-1`` as pure matmul work."""
     n = X.shape[0]
     hi = jax.lax.Precision.HIGHEST
     if n <= block:

@@ -1,48 +1,30 @@
 """Pairwise-distance and covariance-matrix assembly.
 
 This replaces the reference's precomputed ``N x N x D`` displacement tensor
-(reference: inference/gp/covariance.py:218-219) with on-the-fly assembly:
+(reference: inference/gp/covariance.py:218-219) with on-the-fly assembly
+of the scaled squared distances ``D_ij = sum_k ((u_ik - v_jk) / l_k)^2``,
+in one of two forms:
 
-    D_ij = sum_k ((u_ik - v_jk) / l_k)^2
-         = |u'_i|^2 + |v'_j|^2 - 2 u'_i . v'_j      (u' = u / l)
+- the matmul form ``|u'_i|^2 + |v'_j|^2 - 2 u'_i . v'_j`` (``u' = u / l``),
+  whose cross term is one matrix product. In float32 it cancels badly:
+  ``D_ij`` carries an absolute error of ~``eps32 * |u'|^2``, which is large
+  next to the small distances that dominate a smooth kernel;
+- the difference form, summed over the (small) feature dimension. XLA
+  fuses it with the exponential epilogue into one pass that writes only
+  the ``N x N`` result, and it is exact at ``D_ij = 0``.
 
-The cross term is a single matmul, which XLA tiles onto the MXU; memory is
-O(N^2) (the kernel matrix itself) instead of O(N^2 D).
-
-For large N on TPU a Pallas kernel fuses the exponential epilogue of the
-squared-exponential covariance into the distance matmul, avoiding an extra
-round-trip of the N x N distance matrix through HBM.
+Memory is O(N^2) (the kernel matrix itself) in both, instead of O(N^2 D).
 """
-
-import contextlib
 
 import jax
 import jax.numpy as jnp
-
-_TILE = 256  # pallas tile edge (multiple of the 128-lane requirement)
-_PALLAS_MIN_N = 2048  # below this, plain XLA fusion is already optimal
-_FORCE_FALLBACK = False
-
-
-@contextlib.contextmanager
-def force_fallback():
-    """Trace-time switch to the plain-XLA covariance path. The Pallas
-    kernel is wrapped in ``jax.custom_vjp``, which forbids forward-mode
-    autodiff — callers that need ``jacfwd`` (e.g. the generic
-    ``covariance_and_gradients``) trace under this context instead."""
-    global _FORCE_FALLBACK
-    prev = _FORCE_FALLBACK
-    _FORCE_FALLBACK = True
-    try:
-        yield
-    finally:
-        _FORCE_FALLBACK = prev
 
 
 def scaled_sq_distances(u, v, lengthscales):
     """
     Pairwise squared distances between rows of ``u`` (M, D) and ``v`` (N, D)
-    after per-dimension scaling by ``lengthscales`` (D,). Returns (M, N).
+    after per-dimension scaling by ``lengthscales`` (D,), in the matmul
+    form. Returns (M, N).
     """
     u = jnp.atleast_2d(jnp.asarray(u))
     v = jnp.atleast_2d(jnp.asarray(v))
@@ -51,8 +33,8 @@ def scaled_sq_distances(u, v, lengthscales):
     vs = v / ls[None, :]
     uu = (us * us).sum(axis=1)
     vv = (vs * vs).sum(axis=1)
-    # full float32 precision: TPU matmuls default to bfloat16 operands,
-    # which is far too coarse for distance cancellation
+    # full float32 precision: a reduced-precision (TF32) product is far
+    # too coarse for distance cancellation
     cross = jnp.dot(us, vs.T, precision=jax.lax.Precision.HIGHEST)
     # cancellation can leave tiny negative values (~ -1e-16); these are
     # harmless for the exp/power kernels applied downstream, and clamping
@@ -61,173 +43,35 @@ def scaled_sq_distances(u, v, lengthscales):
     return uu[:, None] + vv[None, :] - 2.0 * cross
 
 
-def _sqexp_fallback(u, v, amplitude, lengthscales):
-    d = scaled_sq_distances(u, v, lengthscales)
-    return (amplitude**2) * jnp.exp(-0.5 * d)
-
-
-def _sqexp_pallas(u, v, amplitude, lengthscales):
+def scaled_sq_differences(u, v, lengthscales):
     """
-    Tiled Pallas kernel: exact per-tile pairwise differences fused with the
-    exponential epilogue. For the small feature dimensions typical of GP
-    regression the difference form is VPU-bound but free of the
-    catastrophic cancellation the |u|^2 + |v|^2 - 2uv matmul trick suffers
-    in float32, and fusing the exp avoids a second pass of the N x N
-    distance matrix through HBM.
+    The same distances as ``scaled_sq_distances`` in the difference form
+    ``sum_k ((u_ik - v_jk) / l_k)^2``: one elementwise pass per feature
+    dimension, free of the matmul form's float32 cancellation.
     """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    import contextlib
-
-    u = jnp.asarray(u)
-    v = jnp.asarray(v)
-    m, d = u.shape
-    n = v.shape[0]
-    dtype = u.dtype
-
-    us = (u / lengthscales[None, :]).astype(dtype)
-    vs = (v / lengthscales[None, :]).astype(dtype)
-
-    # pad rows to tile multiples (feature dim stays whole: D is small)
-    mp = -(-m // _TILE) * _TILE
-    np_ = -(-n // _TILE) * _TILE
-    us_p = jnp.zeros((mp, d), dtype).at[:m].set(us)
-    vs_p = jnp.zeros((np_, d), dtype).at[:n].set(vs)
-
-    amp_sq = jnp.asarray([[amplitude**2]], dtype)
-
-    def kernel(us_ref, vs_ref, amp_ref, out_ref):
-        dist = jnp.zeros((_TILE, _TILE), dtype)
-        for k in range(d):  # d is a static python int (small)
-            diff = us_ref[:, k][:, None] - vs_ref[:, k][None, :]
-            dist += diff * diff
-        out_ref[:] = amp_ref[0, 0] * jnp.exp(-0.5 * dist)
-
-    # under jax_enable_x64, float32 kernels still trace their grid/index
-    # types as i64, which Mosaic cannot legalize — trace with x64 off for
-    # f32 operands (f64 operands keep the global setting: interpret mode)
-    if dtype == jnp.float32:
-        try:
-            from jax._src.config import enable_x64
-
-            x64_ctx = enable_x64(False)
-        except ImportError:
-            x64_ctx = contextlib.nullcontext()
-    else:
-        x64_ctx = contextlib.nullcontext()
-
-    grid = (mp // _TILE, np_ // _TILE)
-    with x64_ctx:
-        out = pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((mp, np_), dtype),
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((_TILE, d), lambda i, j: (i, 0)),
-                pl.BlockSpec((_TILE, d), lambda i, j: (j, 0)),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ],
-            out_specs=pl.BlockSpec((_TILE, _TILE), lambda i, j: (i, j)),
-        )(us_p, vs_p, amp_sq)
-    return out[:m, :n]
-
-
-def _sqexp_position_backward(u, v, lengthscales, K, Kbar):
-    """
-    Position cotangents of the squared-exponential covariance: with
-    ``w = K * Kbar`` and scaled coordinates ``us = u/l``, ``vs = v/l``,
-
-        dL/du_ik = -(1/l_k) * (us_ik * sum_j w_ij - (w @ vs)_ik)
-        dL/dv_jk = -(1/l_k) * (vs_jk * sum_i w_ij - (w.T @ us)_jk)
-
-    i.e. one row/column reduction plus one matmul each — MXU work, no
-    N x N x D tensor.
-    """
-    ls = lengthscales[None, :]
-    us = u / ls
-    vs = v / ls
-    w = K * Kbar
-    row = w.sum(axis=1)
-    col = w.sum(axis=0)
-    hp = jax.lax.Precision.HIGHEST
-    du = -(us * row[:, None] - jnp.dot(w, vs, precision=hp)) / ls
-    dv = -(vs * col[:, None] - jnp.dot(w.T, us, precision=hp)) / ls
-    return du, dv
-
-
-def _sqexp_backward(u, v, lengthscales, K, Kbar):
-    """
-    Backward reductions for the squared-exponential covariance: given the
-    cotangent ``Kbar``,
-
-        g_amp = sum_ij Kbar_ij K_ij                               (-> dL/d amp)
-        g_l_k = sum_ij Kbar_ij K_ij ((u_ik - v_jk)/l_k)^2         (-> dL/d l_k)
-
-    so the hyperparameter gradient never materialises per-parameter dK
-    matrices (the reference's approach, reference: covariance.py:268-276).
-    Plain XLA: each per-dimension term is one fused broadcast-subtract-
-    square-multiply-reduce pass over the N x N block.
-    """
-    us = u / lengthscales[None, :]
-    vs = v / lengthscales[None, :]
-    w = K * Kbar
-    g_amp = w.sum()
-    g_ls = jnp.stack(
-        [
-            (w * (us[:, k][:, None] - vs[:, k][None, :]) ** 2).sum()
-            for k in range(u.shape[1])
-        ]
+    u = jnp.atleast_2d(jnp.asarray(u))
+    v = jnp.atleast_2d(jnp.asarray(v))
+    ls = jnp.asarray(lengthscales)
+    us = u / ls[None, :]
+    vs = v / ls[None, :]
+    return sum(
+        (us[:, k, None] - vs[None, :, k]) ** 2 for k in range(us.shape[1])
     )
-    return g_amp, g_ls
-
-
-@jax.custom_vjp
-def _sqexp_pallas_diff(u, v, amplitude, lengthscales):
-    return _sqexp_pallas(u, v, amplitude, lengthscales)
-
-
-def _sqexp_pallas_fwd(u, v, amplitude, lengthscales):
-    K = _sqexp_pallas(u, v, amplitude, lengthscales)
-    return K, (u, v, amplitude, lengthscales, K)
-
-
-def _sqexp_pallas_bwd(residuals, Kbar):
-    u, v, amplitude, lengthscales, K = residuals
-    g_amp_base, g_l_base = _sqexp_backward(u, v, lengthscales, K, Kbar)
-    # K = A^2 exp(-0.5 sum_k ((u-v)/l_k)^2):
-    #   dK/dA   = 2 K / A
-    #   dK/dl_k = K * scaled_diff_k^2 / l_k   (diff already scaled by 1/l_k)
-    d_amp = 2.0 * g_amp_base / amplitude
-    d_ls = g_l_base / lengthscales
-    d_u, d_v = _sqexp_position_backward(u, v, lengthscales, K, Kbar)
-    return d_u, d_v, d_amp, d_ls
-
-
-_sqexp_pallas_diff.defvjp(_sqexp_pallas_fwd, _sqexp_pallas_bwd)
 
 
 def sqexp_covariance(u, v, amplitude, lengthscales):
     """
     Squared-exponential covariance block
-    ``A^2 exp(-0.5 sum_k ((u_ik - v_jk)/l_k)^2)``, using the fused,
-    custom-VJP Pallas kernel on TPU for large problems (exact tile-local
-    differences — no float32 cancellation) and plain XLA otherwise.
-    Differentiable in all four arguments (positions included) on both paths.
+    ``A^2 exp(-0.5 sum_k ((u_ik - v_jk)/l_k)^2)``. Float32 inputs use the
+    difference form (no cancellation); float64 inputs, whose matmul-form
+    error is ~1e-16, use the matmul form. Differentiable in all four
+    arguments, in forward and reverse mode.
     """
     u = jnp.atleast_2d(jnp.asarray(u))
     v = jnp.atleast_2d(jnp.asarray(v))
-    if _FORCE_FALLBACK:
-        return _sqexp_fallback(u, v, amplitude, jnp.asarray(lengthscales))
-    on_tpu = jax.default_backend() == "tpu"
-    # the Pallas kernel exists to avoid float32 cancellation; float64 inputs
-    # don't need it (and TPU Pallas has no f64 support — it faults)
-    f32 = u.dtype == jnp.float32 and v.dtype == jnp.float32
-    if (
-        on_tpu
-        and f32
-        and u.shape[0] >= _PALLAS_MIN_N
-        and v.shape[0] >= _PALLAS_MIN_N
-    ):
-        return _sqexp_pallas_diff(u, v, amplitude, jnp.asarray(lengthscales))
-    return _sqexp_fallback(u, v, amplitude, jnp.asarray(lengthscales))
+    ls = jnp.asarray(lengthscales)
+    if u.dtype == jnp.float32 and v.dtype == jnp.float32:
+        d = scaled_sq_differences(u, v, ls)
+    else:
+        d = scaled_sq_distances(u, v, ls)
+    return (amplitude**2) * jnp.exp(-0.5 * d)

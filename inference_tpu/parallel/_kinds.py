@@ -96,8 +96,8 @@ def build_mass_maps(n_parameters, dtype, inverse_mass=None):
     # momentum sampling is r = L^-T z; precompute the factor inverse ON
     # THE HOST (one P x P triangular solve at build time) so the
     # per-transition device op is a matmul — a vmapped triangular solve
-    # over the chain batch lowers to a sequential substitution on TPU,
-    # while the (chains, P) x (P, P) matmul rides the MXU
+    # over the chain batch is a sequential substitution, while the
+    # (chains, P) x (P, P) product is one matrix multiply
     from scipy.linalg import solve_triangular as host_solve_triangular
 
     Linv_T = jnp.asarray(

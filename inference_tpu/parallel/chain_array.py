@@ -1,12 +1,12 @@
 """Vectorised arrays of independent chains.
 
-The TPU-native replacement for the reference's process-pool data
+The device-resident replacement for the reference's process-pool data
 parallelism (reference: inference/mcmc/parallel.py:15-30, which pickles
 whole chain objects to a multiprocessing.Pool): a single sampler step is
 ``vmap``-ed over a leading chain axis, the whole batch advances inside one
 ``lax.scan``, and the batch is optionally sharded over a device mesh with a
-``NamedSharding`` — thousands of chains per chip, scaling over ICI with no
-host involvement in the sampling loop.
+``NamedSharding`` — thousands of chains per device, scaling over the
+device interconnect with no host involvement in the sampling loop.
 """
 
 import numpy as np
@@ -78,18 +78,6 @@ class ChainArray:
         avoids all retry-loop waste under vmap (a retry loop reruns every
         chain lane until the slowest lane accepts) and is the recommended
         setting for large chain batches.
-    :param fused: "auto" (default) / True / False — the fused
-        whole-trajectory Pallas HMC kernel (``ops.hmc_fused``), which
-        keeps positions, momenta and step-size adaptation in VMEM across
-        every leapfrog step. Measured on a v5e chip it is ~2.5x SLOWER
-        than the XLA kernel on the headline 10-dim workload (16.8M vs
-        40.9M attempts/s at 65k chains — the hand kernel's elementwise
-        dataflow hits the same Mosaic throughput wall the df64 kernel
-        documented, BENCH_NOTES "Fused whole-trajectory HMC kernel"), so
-        "auto" never selects it and it exists as an opt-in experiment:
-        True forces it (requires ``retry=False``, no bounds,
-        unit/scalar/diagonal inverse mass, no mesh, and a
-        Pallas-lowerable posterior; interpret-mode on CPU).
     :param mesh: optional ``jax.sharding.Mesh`` whose ``axis_name`` axis the
         chain batch is sharded over.
     :param axis_name: mesh axis to shard over (default "chains").
@@ -112,7 +100,6 @@ class ChainArray:
         alpha: float = 2.0,
         max_depth: int = 10,
         retry: bool = True,
-        fused="auto",
         mesh=None,
         axis_name: str = "chains",
         seed=None,
@@ -199,49 +186,6 @@ class ChainArray:
         self._history = []
         self._prob_history = []
 
-        self._fused_plan = None
-        self._fused_mode = fused
-        self._rebuild_fused_plan(fused)
-
-    def _rebuild_fused_plan(self, fused):
-        """(Re)build the fused-advance plan, or record why it cannot
-        apply. ``fused=True`` raises on an unsupported configuration;
-        "auto" keeps the XLA kernel everywhere — the fused kernel is a
-        measured regression on chip (see the constructor docstring) and
-        is opt-in only."""
-        self._fused_plan = None
-        if fused is not True:
-            return
-        if self.kind != "hmc":
-            raise ValueError(
-                "[ ChainArray error ] fused=True is only available "
-                "for the 'hmc' kind."
-            )
-        from ..ops.hmc_fused import plan_fused_hmc
-
-        kw = self._build_kwargs
-        problems = []
-        if kw.get("retry", True):
-            problems.append("retry=True (repeat-until-accept)")
-        if kw.get("bounds") is not None:
-            problems.append("reflecting bounds")
-        if self.mesh is not None:
-            problems.append("a device mesh")
-        im = kw.get("inverse_mass")
-        if im is not None and np.asarray(im).ndim > 1:
-            problems.append("a full-matrix inverse mass")
-        if problems:
-            raise ValueError(
-                "[ ChainArray error ] the fused hmc kernel does not "
-                "support: " + ", ".join(problems) + "."
-            )
-        self._fused_plan = plan_fused_hmc(
-            self._logp,
-            self.n_parameters,
-            steps=kw["steps"],
-            inverse_mass=im,
-        )
-
     def advance(self, n: int, store: bool = True, thin: int = 1):
         """
         Advance every chain ``n`` steps in one compiled scan. With
@@ -249,20 +193,10 @@ class ChainArray:
         otherwise every ``thin``-th step's positions are appended to the
         host history.
         """
-        if self._fused_plan is not None:
-            from ..ops.hmc_fused import fused_hmc_advance
-
-            state, hist = fused_hmc_advance(
-                self._fused_plan, self._state, n, store
-            )
-            outs = None
-        else:
-            state, outs = run_steps(self._step, self._state, n, store)
+        state, outs = run_steps(self._step, self._state, n, store)
         self._state = state
         if store:
-            if self._fused_plan is not None:
-                pos, logp = hist[0], hist[1]
-            elif self.kind == "ensemble":
+            if self.kind == "ensemble":
                 pos, logp = outs.walkers, outs.logps
             else:
                 pos, logp = outs.theta, outs.logp
@@ -296,8 +230,6 @@ class ChainArray:
             **self._build_kwargs,
         )
         self._step = jax.vmap(step)
-        if self.kind == "hmc":
-            self._rebuild_fused_plan(self._fused_mode)
         return self
 
     def warmup(

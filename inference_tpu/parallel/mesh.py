@@ -16,7 +16,9 @@ def chain_mesh(n_devices: int = None, axis_name: str = "chains") -> Mesh:
 def tempering_mesh(n_rungs: int, n_devices: int = None) -> Mesh:
     """
     A 2D ('rungs', 'chains') mesh: temperature rungs on the first axis
-    (swap collectives ride ICI along it), independent chains on the second.
+    (swap collectives run along it), independent chains on the second.
+    The GPUs of one host are joined all to all by NVLink, so any layout of
+    the devices serves; the mesh follows the algorithm alone.
     """
     devices = jax.devices()
     if n_devices is not None:

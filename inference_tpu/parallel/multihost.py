@@ -1,4 +1,4 @@
-"""Multi-host (DCN) scale-out helpers.
+"""Multi-host scale-out helpers.
 
 The reference's only cross-process mechanism is ``multiprocessing`` pipes
 on one machine (reference: inference/mcmc/parallel.py:33-136). The rebuild
@@ -6,13 +6,14 @@ scales past a single host with jax's multi-controller runtime: every host
 runs the same program, ``jax.distributed.initialize`` wires the hosts into
 one system, and a global ``Mesh`` over ``jax.devices()`` (all devices on
 all hosts) makes the existing ``ChainArray`` / ``ShardedTempering``
-programs span the pod — XLA routes rung-axis collectives over ICI within a
-slice and host-boundary traffic over DCN, with no user-visible changes.
+programs span every host — XLA hands collectives to NCCL, over NVLink
+between the GPUs of one host and over the network between hosts, with no
+user-visible changes.
 
-Design guidance (the "How to Scale Your Model" recipe): keep
-communication-heavy axes (tempering 'rungs' ppermutes) within a slice and
-put the embarrassingly-parallel 'chains' axis across hosts — independent
-chains never communicate, so DCN bandwidth is irrelevant to them.
+Design guidance: keep communication-heavy axes (tempering 'rungs'
+ppermutes) within a host and put the embarrassingly-parallel 'chains'
+axis across hosts — independent chains never communicate, so the
+network's bandwidth is irrelevant to them.
 """
 
 import numpy as np
@@ -26,10 +27,10 @@ def initialize_multihost(
     process_id: int = None,
 ):
     """
-    Join this process into a multi-host jax system. On cloud TPU pods the
-    arguments are discovered automatically from the environment; on other
-    clusters pass ``coordinator_address`` ("host:port" of process 0),
-    ``num_processes`` and this host's ``process_id``.
+    Join this process into a multi-host jax system: pass
+    ``coordinator_address`` ("host:port" of process 0), ``num_processes``
+    and this host's ``process_id`` (on clusters whose environment JAX
+    recognises, they may be left out).
 
     Call once, before any jax computation, on every host.
     """
@@ -59,8 +60,8 @@ def global_chain_mesh(axis_name: str = "chains") -> Mesh:
 def global_tempering_mesh(n_rungs: int) -> Mesh:
     """
     A ('rungs', 'chains') mesh over every device on every host, with the
-    rung axis laid out along contiguous devices (within a host/slice where
-    possible) so swap ppermutes ride ICI rather than DCN.
+    rung axis laid out along contiguous devices (within a host where
+    possible) so swap ppermutes stay on NVLink rather than the network.
     """
     devices = jax.devices()
     n = len(devices)

@@ -1,8 +1,9 @@
 """Sharded parallel tempering: replica-exchange over a device mesh.
 
-The multi-chip form of ``inference_tpu.mcmc.ParallelTempering``: temperature
-rungs are laid out along the 'rungs' axis of a ('rungs', 'chains') mesh and
-swap proposals become **collective permutes** (``lax.ppermute``) over ICI —
+The multi-device form of ``inference_tpu.mcmc.ParallelTempering``:
+temperature rungs are laid out along the 'rungs' axis of a ('rungs',
+'chains') mesh and swap proposals become **collective permutes**
+(``lax.ppermute``, NCCL over NVLink between GPUs) —
 the reference's pipe-synchronised process swaps
 (reference: inference/mcmc/parallel.py:190-231) with no host round-trip.
 
@@ -489,8 +490,8 @@ class ShardedTempering:
         run_time = ((days * 24.0 + hours) * 60.0 + minutes) * 60.0
         end_time = time() + run_time
 
-        # warm the compiled cycle first (remote compilation costs seconds
-        # and would wreck the calibration), then time a warm cycle
+        # warm the compiled cycle first (compilation costs seconds and
+        # would wreck the calibration), then time a warm cycle
         self.advance(swap_interval, swap_interval, store=store, thin=thin)
         t1 = time()
         self.advance(swap_interval, swap_interval, store=store, thin=thin)

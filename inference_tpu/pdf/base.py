@@ -1,6 +1,6 @@
 """Abstract base class for 1D density estimators.
 
-TPU-native rebuild of the reference ``DensityEstimator``
+JAX rebuild of the reference ``DensityEstimator``
 (reference: inference/pdf/base.py:8-169): ``interval`` refines a sample-HDI
 seed by Nelder-Mead over (centre, width), and ``plot_summary`` renders the
 estimate with summary statistics.
@@ -10,7 +10,6 @@ from abc import ABC, abstractmethod
 
 import numpy as np
 from scipy.optimize import minimize
-import matplotlib.pyplot as plt
 
 from .hdi import sample_hdi
 
@@ -93,6 +92,8 @@ class DensityEstimator(ABC):
         mean, variance, skewness, kurtosis = self.moments()
         peak = float(self(self.mode))
         lo, hi = self._plot_range(two_sigma, peak)
+
+        import matplotlib.pyplot as plt
 
         fig, (ax_pdf, ax_stats) = plt.subplots(
             ncols=2, figsize=(10, 6), gridspec_kw={"width_ratios": [2, 1]}

@@ -1,6 +1,6 @@
 """Highest-density interval estimation from samples.
 
-TPU-native rebuild of the reference ``sample_hdi``
+JAX rebuild of the reference ``sample_hdi``
 (reference: inference/pdf/hdi.py:6-147): the shortest interval containing a
 chosen fraction of the samples, vectorised over the columns of a 2D input.
 The sort + sliding-window argmin runs as numpy on the host (analysis-side);

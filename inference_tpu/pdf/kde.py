@@ -1,6 +1,6 @@
 """Gaussian kernel-density estimation.
 
-TPU-native rebuild of the reference ``GaussianKDE`` / ``KDE2D``
+JAX rebuild of the reference ``GaussianKDE`` / ``KDE2D``
 (reference: inference/pdf/kde.py:13-325). The reference prunes kernel sums
 spatially with a ``BinaryTree`` of axis regions (reference: kde.py:76-113);
 here evaluation is a **dense vectorised kernel sum** on device — an (M, N)

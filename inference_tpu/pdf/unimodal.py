@@ -1,6 +1,6 @@
 """Parametric unimodal density estimation.
 
-TPU-native rebuild of the reference ``UnimodalPdf``
+JAX rebuild of the reference ``UnimodalPdf``
 (reference: inference/pdf/unimodal.py:10-171): a 6-parameter skew-warped
 generalised Student-t model ``z = z0 * exp(-f * tanh(z0 / k))``,
 ``log p = -(1 + v)/2 * log(1 + |z|^q / v)``, normalised by 128-node

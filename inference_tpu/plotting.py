@@ -1,6 +1,6 @@
 """Visualisation of samples and diagnostics.
 
-TPU-native rebuild of the reference plotting module
+JAX rebuild of the reference plotting module
 (reference: inference/plotting.py:19-554): corner ('matrix') plots of 1D/2D
 marginals, trace plots, highest-density-interval band plots, and
 transition-matrix heatmaps. All functions are host-side matplotlib; density

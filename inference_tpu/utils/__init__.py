@@ -8,7 +8,6 @@ from .wrap import (
     as_device_logp,
     validate_posterior,
     is_traceable,
-    callbacks_supported,
 )
 from .profiling import device_trace, PhaseTimer
 
@@ -25,7 +24,6 @@ __all__ = [
     "as_device_logp",
     "validate_posterior",
     "is_traceable",
-    "callbacks_supported",
     "device_trace",
     "PhaseTimer",
 ]

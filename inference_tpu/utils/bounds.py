@@ -1,6 +1,6 @@
 """Rectangular parameter bounds with infinite-reflection maps.
 
-TPU-native rebuild of the reference ``Bounds`` class
+JAX rebuild of the reference ``Bounds`` class
 (reference: inference/mcmc/utilities.py:98-162). Validation happens eagerly
 on the host at construction; the reflection maps are pure jax functions so
 they can be used inside jitted sampler step functions (e.g. the bounded

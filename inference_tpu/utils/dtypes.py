@@ -1,8 +1,8 @@
 """Floating-point policy helpers.
 
-The samplers run in float32 on TPU (MXU/VPU native) and float64 on CPU when
-x64 is enabled (used by the test-suite for numerical parity checks against
-the reference implementation, which is float64 numpy throughout).
+The samplers run in float32 by default and in float64 when x64 is enabled
+(as the test-suite does, for numerical parity checks against the reference
+implementation, which is float64 numpy throughout).
 """
 
 import jax

@@ -14,6 +14,6 @@ differ; this module holds the shared budget.
 """
 
 # offload device-held history once it exceeds this many bytes, bounding
-# HBM growth on very long runs (the transfer is one consolidated block);
+# device-memory growth on very long runs (the transfer is one consolidated block);
 # tune per deployment: higher = fewer, larger offload stalls
 DEVICE_HISTORY_LIMIT = 2**30

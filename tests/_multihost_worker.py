@@ -4,7 +4,7 @@ Run as:  python _multihost_worker.py <coordinator> <n_procs> <proc_id>
 
 Each worker is its own jax "host" with 4 forced CPU devices; together the
 processes form one 8-device multi-controller system over a localhost
-coordinator — the CI-sized stand-in for a real multi-host TPU pod.
+coordinator — the CI-sized stand-in for a real multi-host cluster.
 Prints one JSON line of results for the parent to assert on.
 """
 
@@ -23,7 +23,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 

@@ -132,7 +132,7 @@ def test_large_scale_inverter_sharded():
 @pytest.mark.slow
 def test_large_inverter_df64_solver():
     """solver='df64' routes the N-dimensional prior contraction through
-    the pair-arithmetic Pallas matvec: at small noise the data-space
+    the df64 tier's float64 matvec: at small noise the data-space
     residual (measured through the df64 matvec) reaches ~1e-7 where the
     float32 entry noise would floor a plain solve, and the posterior
     mean agrees with the float32 path."""

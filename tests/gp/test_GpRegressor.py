@@ -366,8 +366,8 @@ def test_pad_to_rejects_data_sized_kernels():
 
 def test_gpr_explicit_dtype():
     """dtype='float32' pins the compiled programs to float32 even under an
-    x64-enabled process (on TPU the x64 default would route the Cholesky
-    through emulated float64 — unusable at large N)."""
+    x64-enabled process (the x64 default would run the Cholesky in
+    float64)."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(0)
@@ -391,7 +391,7 @@ def test_gpr_explicit_dtype():
 
 @pytest.mark.slow
 def test_blocked_cholesky_backend_matches_xla():
-    """cholesky='blocked' (MXU-panel factorisation for large N on TPU)
+    """cholesky='blocked' (statically-unrolled matmul-panel factorisation)
     reproduces the default backend's LML, gradient, fit state and
     predictions; invalid options are rejected. Slow tier: the fast tier
     covers the blocked factorisation itself in tests/test_ops.py."""
@@ -468,6 +468,73 @@ def test_analytic_lml_gradient_matches_autodiff():
     lx, gx = loo_x._loo_grad(t)
     assert np.isclose(float(la), float(lx), rtol=1e-10)
     assert np.allclose(np.asarray(ga), np.asarray(gx), rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize(
+    "n, dtype, expected",
+    [
+        (256, np.float64, "xla"),
+        (2047, np.float64, "xla"),
+        (2048, np.float64, "analytic"),
+        (16384, np.float64, "analytic"),
+        (2048, np.float32, "xla"),
+        (16384, np.float32, "xla"),
+    ],
+)
+def test_auto_gradient_path_policy(n, dtype, expected):
+    """cholesky='auto' picks the gradient path from the padded size and
+    the dtype (the analytic backward's float32 gradient is too coarse),
+    never from the backend."""
+    from inference_tpu.gp.regression import auto_gradient_path
+
+    assert auto_gradient_path(n, np.dtype(dtype)) == expected
+
+
+def test_auto_policy_selects_analytic_lml_at_crossover():
+    """A float64 model at the crossover builds the closed-form backward for
+    the LML gradient; a float32 one, or a smaller one, the autodiff
+    objective."""
+    rng = np.random.default_rng(8)
+    x = rng.uniform(0, 10, size=(40, 1))
+    y = np.sin(x[:, 0])
+    err = np.full(40, 0.1)
+    theta = np.array([0.0, 0.0, 0.3])
+    small = GpRegressor(x, y, y_err=err, hyperpars=theta)
+    big = GpRegressor(x, y, y_err=err, hyperpars=theta, pad_to=2048)
+    big32 = GpRegressor(x, y, y_err=err, hyperpars=theta, pad_to=2048,
+                        dtype="float32")
+    assert "make_lml_analytic" in big._lml_raw.__qualname__
+    assert "make_lml_analytic" not in big32._lml_raw.__qualname__
+    assert "make_lml_analytic" not in small._lml_raw.__qualname__
+    v0, g0 = small.marginal_likelihood_gradient(theta)
+    v1, g1 = big.marginal_likelihood_gradient(theta)
+    assert np.isclose(v0, v1, rtol=1e-9)
+    assert np.allclose(g0, g1, rtol=1e-7, atol=1e-9)
+
+
+def test_analytic_lml_backward_differentiates_data_and_noise():
+    """The closed-form backward gives the same cotangents as autodiff for
+    every input — data, noise and jitter included — instead of zeros."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(12)
+    x = rng.uniform(0, 10, size=(60, 2))
+    y = np.sin(x[:, 0]) + 0.1 * rng.normal(size=60)
+    err = np.full(60, 0.1)
+    theta = np.array([0.1, 0.2, 0.4, 0.3])
+    base = GpRegressor(x, y, y_err=err, hyperpars=theta, cholesky="xla")
+    analytic = GpRegressor(x, y, y_err=err, hyperpars=theta, cholesky="analytic")
+    args = (jnp.asarray(theta), base._x_dev, base._y_dev, base._sig_dev,
+            base._mask_dev, jnp.asarray(1e-6))
+    grads = [
+        jax.grad(lambda *a: gp._lml_raw(*a), argnums=(0, 1, 2, 3, 5))(*args)
+        for gp in (base, analytic)
+    ]
+    for g_ref, g in zip(*grads):
+        assert np.abs(np.asarray(g_ref)).max() > 0
+        assert np.allclose(np.asarray(g), np.asarray(g_ref), rtol=1e-7,
+                           atol=1e-9)
 
 
 def test_cholesky_option_validation():

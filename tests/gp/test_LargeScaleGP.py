@@ -175,11 +175,9 @@ def test_mixed_solver_beats_plain_cg_at_small_noise():
 
 @pytest.mark.slow
 def test_df64_solver_small_noise():
-    """solver='df64' (pair-arithmetic Pallas matvec + float64 CG vectors)
-    reaches ~1e-9 single-solve residuals in the sigma=0.01 regime where
-    float32 matvec entry noise floors the other solvers. Runs the real
-    kernel logic through the Pallas interpreter on CPU; the on-chip
-    figures at N=16k/50k are recorded in BENCH_NOTES.md."""
+    """solver='df64' (float64 matvec + float64 CG vectors) reaches ~1e-9
+    single-solve residuals in the sigma=0.01 regime where float32 matvec
+    entry noise floors the other solvers."""
     rng = np.random.default_rng(7)
     n = 512
     x = rng.uniform(0, 8, size=(n, 2))
@@ -202,8 +200,8 @@ def test_df64_solver_small_noise():
 
     # posterior means run through the host-f64 contraction with alpha64:
     # the f32 device dot floors at sqrt(n)*eps32*|alpha| ABSOLUTE error
-    # (alpha ~ y/sigma^2 at small noise), measured 2.3e-2 on-chip at
-    # N=16k before the fix. 300 queries also exercise the 256-wide
+    # (alpha ~ y/sigma^2 at small noise), measured 2.3e-2 at N=16k
+    # before the fix. 300 queries also exercise the 256-wide
     # mean-chunk loop.
     q = rng.uniform(1, 7, size=(300, 2))
     mu = gp(q)
@@ -239,7 +237,7 @@ def test_df64_preconditioner_f64_application():
     float64. At sigma ~ 1e-2 the Woodbury core has condition
     ~ amp^2 N / sigma^2 and the w - U t / d subtraction cancels ~8
     digits: an f32 application stalls PCG at 1e-4..1e-6 even with an
-    exact f64 matvec (the N=50k on-chip stall), while f64 application
+    exact f64 matvec (the measured N=50k stall), while f64 application
     converges in <50 iterations. This pins the application against a
     dense float64 (D + U U^T)^{-1} to far beyond f32 reach, and the
     operand dtypes."""
@@ -484,27 +482,6 @@ def test_store_entries_validation():
                      store_entries="yes")
 
 
-def test_df64_chunk_floor_shrinks_with_n():
-    """The watchdog chunk budget must not step-function into ~150 s
-    chunks just under the old floor's knee: the floor follows the 30 s
-    budget continuously down to 2 iterations."""
-    from inference_tpu.ops.solvers import df64_chunk_iters
-
-    prev = None
-    # up to the tier's advertised single-chip reach (~1e5 points)
-    for n in (16_384, 50_000, 80_000, 100_000):
-        it = df64_chunk_iters(n)
-        per_iter = 1.7e-9 * n * n
-        # one chunk (it iterations + 2 refresh matvecs) stays well under
-        # the ~2-4 min watchdog kill threshold; the attainable floor is
-        # 4 matvecs (2 iterations + the refresh), ~68 s at N=1e5
-        assert (it + 2) * per_iter < 90.0, (n, it)
-        assert it >= 2
-        if prev is not None:
-            assert it <= prev
-        prev = it
-
-
 @pytest.mark.slow
 def test_fit_matches_on_sharded_mesh():
     """fit() through mesh-sharded blocked matvecs follows the same
@@ -694,11 +671,11 @@ def test_unsupported_kernels_error_at_construction():
 
 @pytest.mark.slow
 def test_df64_stored_f32_tier_matches_pair_tier():
-    """store_entries='f32' (round 4: pair-accurate entries rounded to one
-    float32 word, CG iterating on the stored array with fused-kernel
+    """store_entries='f32' (float64 entries rounded to one float32 word,
+    CG iterating on the stored array with evaluate-per-matvec
     true-residual refreshes) reaches the same df64-level residual as the
     pair tier in the small-noise regime — the tier that extends stored
-    entries past the pair tier's HBM cap (n ~ 20k) to n ~ 51k."""
+    entries past the pair tier's memory cap (n ~ 20k) to n ~ 51k."""
     rng = np.random.default_rng(11)
     n = 512
     x = rng.uniform(0, 8, size=(n, 2))
@@ -724,7 +701,7 @@ def test_df64_stored_f32_tier_matches_pair_tier():
 
 def test_df64_auto_guard_refuses_unsound_f32_tier(monkeypatch):
     """store_entries='auto' in the stored-f32 size window falls back to
-    the fused kernel (with a warning) when the tier's 2^-24 entry
+    the evaluate-per-matvec path (with a warning) when the tier's 2^-24 entry
     quantisation exceeds the noise scale: iterative refinement over the
     quantised operator is measured to stall there, and the default
     policy must not silently select an accuracy class the solve cannot
@@ -732,9 +709,7 @@ def test_df64_auto_guard_refuses_unsound_f32_tier(monkeypatch):
 
     The guard only engages past the pair tier's 20480-padded-row cap,
     so the constructor is necessarily huge — the training solve is
-    stubbed out (a fused df64 solve at n=20k runs the interpret-mode
-    Pallas kernel on CPU, which is effectively unbounded: it consumed
-    >60 CPU-minutes in the fast tier before this stub)."""
+    stubbed out (a df64 solve at n=20k on the CPU would take minutes)."""
     from inference_tpu.ops import solvers as solvers_mod
 
     monkeypatch.setattr(
@@ -751,7 +726,7 @@ def test_df64_auto_guard_refuses_unsound_f32_tier(monkeypatch):
     x = rng.uniform(0, 8, size=(n, 2))
     y = np.sin(x[:, 0])
     err = np.full(n, 1e-4)  # sigma^2 = 1e-8, far below the quantisation
-    with pytest.warns(UserWarning, match="falling back to the fused"):
+    with pytest.warns(UserWarning, match="falling back to the evaluate-per-matvec"):
         gp = LargeScaleGP(
             x, y, err, hyperpars=np.array([0.0, 0.0, 0.0]),
             block_size=128, preconditioner_rank=8, solver="df64",

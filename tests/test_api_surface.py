@@ -189,7 +189,7 @@ def test_every_reference_public_method_has_a_counterpart():
 
 def test_constructor_parameters_are_accepted():
     """Every keyword a reference constructor accepts is accepted here too
-    (extra TPU-side keywords are fine; *fewer* would break drop-in use)."""
+    (extra keywords of this package are fine; *fewer* would break drop-in use)."""
     missing = []
     for name, ref_cls in _iter_ref_classes():
         ours = _find_counterpart(name)

@@ -1,91 +1,21 @@
-"""Double-float (two-f32) arithmetic and the df64 covariance matvec."""
+"""The df64 covariance tier (float64 entries over float32-pair inputs)
+and the conjugate-gradient solvers that use it."""
 
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 
-from inference_tpu.ops.df64 import (
-    two_sum,
-    two_prod,
-    df_add,
-    df_mul,
-    df_exp_neg,
-    split_f64,
-    sqexp_matvec_df64,
-)
+from inference_tpu.ops.df64 import split_f64, sqexp_matvec_df64
 
 
 def _pair64(h, l):
     return np.asarray(h, np.float64) + np.asarray(l, np.float64)
 
 
-def test_error_free_transforms():
-    """two_sum / two_prod are exact: s + e reproduces the f64 result."""
-    rng = np.random.default_rng(0)
-    a = jnp.asarray(rng.normal(size=2048), jnp.float32)
-    b = jnp.asarray(rng.normal(size=2048) * 1e-4, jnp.float32)
-    a64 = np.asarray(a, np.float64)
-    b64 = np.asarray(b, np.float64)
-
-    s, e = jax.jit(two_sum)(a, b)
-    assert np.array_equal(_pair64(s, e), a64 + b64)
-
-    p, pe = jax.jit(two_prod)(a, b)
-    assert np.array_equal(_pair64(p, pe), a64 * b64)
-
-
-def test_pair_arithmetic_accuracy():
-    """df_add / df_mul carry ~2^-47 relative accuracy."""
-    rng = np.random.default_rng(1)
-    x64 = rng.normal(size=2048) * np.exp(rng.normal(size=2048))
-    y64 = rng.normal(size=2048) * np.exp(rng.normal(size=2048))
-    xh, xl = split_f64(x64)
-    yh, yl = split_f64(y64)
-
-    sh, sl = jax.jit(df_add)(xh, xl, yh, yl)
-    rel = np.abs(_pair64(sh, sl) - (x64 + y64)) / np.maximum(
-        np.abs(x64 + y64), 1e-300
-    )
-    # cancellation in x + y amplifies the (exact) pair representation gap
-    assert np.median(rel) < 1e-13
-
-    ph, plo = jax.jit(df_mul)(xh, xl, yh, yl)
-    rel = np.abs(_pair64(ph, plo) - x64 * y64) / np.abs(x64 * y64)
-    assert rel.max() < 1e-12
-
-
-def test_df_exp_neg_accuracy():
-    """The pair exponential reaches ~1e-8 relative accuracy over the
-    kernel-entry range that matters — the f32 exp intrinsic alone is ~4e-6
-    on TPU. Below exp(a) ~ 1e-31 the low word of the 2^k scaling
-    underflows and accuracy degrades gracefully to plain float32 (such
-    entries are beyond irrelevant in any matvec)."""
-    a64 = -np.concatenate(
-        [np.linspace(0.0, 70.0, 4001), np.logspace(-8, 1.8, 1000)]
-    )
-    ah, al = split_f64(a64)
-    eh, el = jax.jit(df_exp_neg)(jnp.asarray(ah), jnp.asarray(al))
-    rel = np.abs(_pair64(eh, el) - np.exp(a64)) / np.exp(a64)
-    assert rel.max() < 5e-8
-
-    tail = -np.linspace(70.0, 86.5, 500)
-    ah, al = split_f64(tail)
-    eh, el = jax.jit(df_exp_neg)(jnp.asarray(ah), jnp.asarray(al))
-    rel = np.abs(_pair64(eh, el) - np.exp(tail)) / np.exp(tail)
-    assert rel.max() < 2e-7
-
-
-def test_df_exp_neg_flush():
-    ah, al = split_f64(np.array([-100.0, -500.0]))
-    eh, el = df_exp_neg(jnp.asarray(ah), jnp.asarray(al))
-    assert np.all(_pair64(eh, el) == 0.0)
-
-
-@pytest.mark.slow
-def test_sqexp_matvec_df64_interpret():
-    """Full fused matvec in interpret mode vs the float64 host truth:
-    far below the plain-f32 entry-noise floor (~1e-7 at this N)."""
+def test_sqexp_matvec_df64_matches_host():
+    """The matvec vs the float64 host truth: far below the plain-f32
+    entry-noise floor (~1e-7 at this N)."""
     if not jax.config.read("jax_enable_x64"):
         pytest.skip("requires x64")
     rng = np.random.default_rng(2)
@@ -96,7 +26,7 @@ def test_sqexp_matvec_df64_interpret():
     truth = np.exp(-0.5 * d2) @ v
 
     uh, ul = split_f64(x)
-    y = sqexp_matvec_df64(uh, ul, v.astype(np.float32), interpret=True)
+    y = sqexp_matvec_df64(uh, ul, v.astype(np.float32))
     err = np.abs(np.asarray(y) - truth).max() / np.abs(truth).max()
     assert err < 1e-7
 
@@ -222,19 +152,10 @@ def test_df64_solver_breakdown_freezes_iterate():
     assert int(info) != 0  # breakdown reported, not claimed converged
 
 
-@pytest.mark.slow
 def test_sqexp_matmat_df64_matches_matvec_columns():
-    """The multi-RHS kernel runs the single-RHS kernel's entry
-    evaluation and compensated accumulation, only amortised — columns
-    must agree with separate matvecs far below the kernels' ~1e-8
-    accuracy floor, and each program must be deterministic. (Round 3
-    asserted BITWISE equality; the round-4 kernels evaluate several
-    corrections in plain float32 — e.g. the exp Horner and the
-    error-word adds — whose rounding depends on per-program compiler
-    instruction selection (fma contraction), so programs of different
-    column count can disagree at the kernels' own ~1e-8 accuracy scale
-    while each remains exactly reproducible and within contract vs the
-    float64 truth.)"""
+    """The multi-RHS matmat evaluates the same entries as the matvec —
+    columns must agree with separate matvecs far below the tier's ~1e-8
+    accuracy contract, and each program must be deterministic."""
     from inference_tpu.ops.df64 import (
         split_f64,
         sqexp_matmat_df64,
@@ -260,7 +181,6 @@ def test_sqexp_matmat_df64_matches_matvec_columns():
     assert np.array_equal(Y, np.asarray(sqexp_matmat_df64(uh, ul, V)))
 
 
-@pytest.mark.slow
 def test_df64_multi_solver_matches_dense():
     """Df64MultiSolver solves a block of systems to df64 accuracy with
     per-column convergence, against a dense float64 solve."""
@@ -288,18 +208,15 @@ def test_df64_multi_solver_matches_dense():
     X, info = solver.solve(jnp.asarray(B), tol=1e-7, maxiter=2000)
     R = A @ np.asarray(X) - B
     rel = np.linalg.norm(R, axis=0) / np.linalg.norm(B, axis=0)
-    # the CPU interpret-mode pair kernel floors solves at ~2e-7 relative
-    # (the compiled TPU kernel reaches ~1e-9; measured on-chip in
-    # BENCH_NOTES) — assert well below the f32 floor (~1e-3 here)
+    # well below the f32 floor (~1e-3 here)
     assert rel.max() < 1e-6
     assert int(info) == 0
 
 
 def test_sqexp_entries_df64_accuracy():
-    """Stored pair entries match host float64 exp(-0.5 d^2) to the pair
-    exponential's ~1e-8 contract (relative, down to 1e-25-magnitude
-    entries; below the low word's underflow scale only absolute accuracy
-    is meaningful)."""
+    """Stored pair entries match host float64 exp(-0.5 d^2) to the tier's
+    ~1e-8 contract (relative, down to 1e-25-magnitude entries; below the
+    low word's underflow scale only absolute accuracy is meaningful)."""
     if not jax.config.read("jax_enable_x64"):
         pytest.skip("requires x64")
     from inference_tpu.ops.df64 import sqexp_entries_df64
@@ -310,7 +227,7 @@ def test_sqexp_entries_df64_accuracy():
     uh, ul = split_f64(x)
     u64 = _pair64(uh, ul)
     E64 = np.exp(-0.5 * ((u64[:, None, :] - u64[None, :, :]) ** 2).sum(-1))
-    Eh, El = sqexp_entries_df64(uh, ul, interpret=True)
+    Eh, El = sqexp_entries_df64(uh, ul)
     E = _pair64(Eh, El)
     mask = E64 > 1e-25
     rel = np.abs(E - E64)[mask] / E64[mask]
@@ -318,10 +235,9 @@ def test_sqexp_entries_df64_accuracy():
     assert np.abs(E - E64).max() < 1e-8
 
 
-@pytest.mark.slow
 def test_sqexp_stored_matmat_matches_fused():
-    """The stored-entries contraction reproduces the fused kernel (same
-    entry bits, same pair accumulation) and the float64 truth."""
+    """The stored-entries contraction reproduces the evaluate-per-matvec
+    path and the float64 truth."""
     if not jax.config.read("jax_enable_x64"):
         pytest.skip("requires x64")
     from inference_tpu.ops.df64 import (
@@ -336,27 +252,26 @@ def test_sqexp_stored_matmat_matches_fused():
     uh, ul = split_f64(x)
     u64 = _pair64(uh, ul)
     E64 = np.exp(-0.5 * ((u64[:, None, :] - u64[None, :, :]) ** 2).sum(-1))
-    Eh, El = sqexp_entries_df64(uh, ul, interpret=True)
+    Eh, El = sqexp_entries_df64(uh, ul)
 
     V = rng.normal(size=(n, 4)).astype(np.float32)
-    Y = np.asarray(sqexp_stored_matmat_df64(Eh, El, V, interpret=True))
+    Y = np.asarray(sqexp_stored_matmat_df64(Eh, El, V))
     Y_true = E64 @ V.astype(np.float64)
     assert np.abs(Y - Y_true).max() / np.abs(Y_true).max() < 3e-8
 
     y = np.asarray(
-        sqexp_stored_matvec_df64(Eh, El, V[:, 0], interpret=True)
+        sqexp_stored_matvec_df64(Eh, El, V[:, 0])
     )
     y_fused = np.asarray(
-        sqexp_matvec_df64(uh, ul, V[:, 0], interpret=True)
+        sqexp_matvec_df64(uh, ul, V[:, 0])
     )
     assert np.abs(y - y_fused).max() / np.abs(y_fused).max() < 1e-12
 
 
-@pytest.mark.slow
 def test_rect_and_sharded_matmat_match_square():
-    """The rectangular kernel reproduces the square kernel bitwise on the
+    """The rectangular matmat reproduces the square one bitwise on the
     full row set and on row blocks, and the row-sharded mesh wrapper
-    (the multi-chip df64 matvec) reproduces it bitwise end to end."""
+    (the multi-device df64 matvec) reproduces it bitwise end to end."""
     import jax
     from jax.sharding import Mesh
     from inference_tpu.ops.df64 import (
@@ -395,9 +310,8 @@ def test_rect_and_sharded_matmat_match_square():
 
 def test_sqexp_entries_f32_is_rounded_pair():
     """The f32 entry tier stores EXACTLY the rounded pair entries: each
-    value is fl32 of the float64 kernel entry to within the pair
-    evaluation's own ~2e-8 contract — crucially NOT the ~1.2e-5
-    float32-evaluated-entry noise."""
+    value is fl32 of the float64 kernel entry — crucially NOT the
+    ~1.2e-5 float32-evaluated-entry noise."""
     if not jax.config.read("jax_enable_x64"):
         pytest.skip("requires x64")
     from inference_tpu.ops.df64 import sqexp_entries_df64, sqexp_entries_f32
@@ -406,8 +320,8 @@ def test_sqexp_entries_f32_is_rounded_pair():
     n, d = 256, 2
     x = rng.uniform(0, 8, size=(n, d))
     uh, ul = split_f64(x)
-    E = np.asarray(sqexp_entries_f32(uh, ul, interpret=True))
-    Eh, El = sqexp_entries_df64(uh, ul, interpret=True)
+    E = np.asarray(sqexp_entries_f32(uh, ul))
+    Eh, El = sqexp_entries_df64(uh, ul)
     # identical evaluation pipeline: the stored f32 word IS the pair's
     # high word
     assert np.array_equal(E, np.asarray(Eh))
@@ -415,15 +329,14 @@ def test_sqexp_entries_f32_is_rounded_pair():
     E64 = np.exp(-0.5 * ((u64[:, None, :] - u64[None, :, :]) ** 2).sum(-1))
     mask = E64 > 1e-20
     rel = np.abs(np.float64(E) - E64)[mask] / E64[mask]
-    # rounding to one f32 word adds at most 2^-25 ~ 3e-8 to the pair
-    # evaluation's ~2e-8
+    # rounding to one f32 word is at most 2^-24 ~ 6e-8 relative
     assert rel.max() < 1e-7
 
 
 def test_sqexp_stored_f32_matmat_accuracy():
     """The stored-f32 contraction is exact to ~1e-15 with respect to the
-    STORED matrix (compensated pair accumulation over exact Dekker
-    products): the operator error is purely the entries' quantisation."""
+    STORED matrix (a float64 contraction): the operator error is purely
+    the entries' quantisation."""
     if not jax.config.read("jax_enable_x64"):
         pytest.skip("requires x64")
     from inference_tpu.ops.df64 import sqexp_entries_f32, sqexp_stored_f32_matmat
@@ -432,15 +345,14 @@ def test_sqexp_stored_f32_matmat_accuracy():
     n, d, q = 256, 2, 3
     x = rng.uniform(0, 8, size=(n, d))
     uh, ul = split_f64(x)
-    E = sqexp_entries_f32(uh, ul, interpret=True)
+    E = sqexp_entries_f32(uh, ul)
     V = rng.normal(size=(n, q)).astype(np.float32)
-    Y = np.asarray(sqexp_stored_f32_matmat(E, jnp.asarray(V), interpret=True))
+    Y = np.asarray(sqexp_stored_f32_matmat(E, jnp.asarray(V)))
     truth_stored = np.float64(np.asarray(E)) @ np.float64(V)
     rel = np.abs(Y - truth_stored).max() / np.abs(truth_stored).max()
     assert rel < 1e-13
 
 
-@pytest.mark.slow
 def test_df64_solver_fast_iteration_matvec():
     """Df64Solver with a stored-f32 fast-iteration matvec converges to
     the same df64-level residual as the accurate-matvec solver: the
@@ -493,7 +405,7 @@ def test_df64_solver_divergence_safeguard_returns_best_iterate():
     """The host loop must never return an iterate worse than the best
     one seen. Carrying the direction across true-residual refreshes can
     turn near-floor iteration into geometric divergence (measured at
-    N=50,000, sigma=0.01 on chip: 3.9e-9 -> 1.4e+15 -> nan across three
+    N=50,000, sigma=0.01: 3.9e-9 -> 1.4e+15 -> nan across three
     chunks with rz and pAp positive throughout); the safeguard restores
     a diverged column to its best state with a steepest-descent reset
     and freezes it on the second strike. Divergence is injected

@@ -90,7 +90,7 @@ def test_two_process_system_and_collectives(multihost_results):
         assert np.isfinite(r["mean_logp"])
         assert r["mean_move"] > 0.0  # the sharded chains actually moved
         # global_tempering_mesh keeps each rung ladder within one process
-        # (4 rungs fit in a 4-device host), so swaps ride "ICI" not "DCN"
+        # (4 rungs fit in a 4-device host), so swaps stay within a host
         assert r["tempering_col_procs"] == [1, 1]
 
     # both controllers computed identical global statistics

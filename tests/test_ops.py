@@ -5,7 +5,8 @@ import jax.numpy as jnp
 
 from inference_tpu.ops.pairwise import (
     scaled_sq_distances,
-    _sqexp_fallback,
+    scaled_sq_differences,
+    sqexp_covariance,
 )
 from inference_tpu.utils.ess import (
     effective_sample_size,
@@ -23,34 +24,43 @@ def test_scaled_sq_distances_matches_direct():
     assert np.allclose(D, direct, atol=1e-9)
 
 
-def test_sqexp_fallback_values():
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_sqexp_covariance_values(dtype):
+    """Both dtype paths match the host float64 direct evaluation, with an
+    exact diagonal."""
     rng = np.random.default_rng(1)
     u = rng.normal(size=(10, 2))
     ls = np.array([0.8, 1.3])
-    K = np.asarray(_sqexp_fallback(jnp.asarray(u), jnp.asarray(u), 1.5, jnp.asarray(ls)))
+    K = np.asarray(
+        sqexp_covariance(jnp.asarray(u, dtype), jnp.asarray(u, dtype), 1.5,
+                         jnp.asarray(ls, dtype))
+    )
     direct = 1.5**2 * np.exp(
         -0.5 * (((u[:, None, :] - u[None, :, :]) / ls) ** 2).sum(-1)
     )
-    assert np.allclose(K, direct, atol=1e-10)
-    assert np.allclose(np.diag(K), 1.5**2)
+    tol = 1e-10 if dtype == jnp.float64 else 1e-5
+    assert K.dtype == dtype
+    assert np.allclose(K, direct, atol=tol)
+    assert np.allclose(np.diag(K), 1.5**2, atol=tol)
 
 
-def test_sqexp_pallas_interpret_matches_fallback():
-    """The Pallas kernel (run in interpreter mode on CPU) matches the
-    XLA fallback path."""
-    from jax.experimental.pallas import tpu as pltpu
-    from inference_tpu.ops import pairwise
-
+def test_sqexp_difference_form_beats_matmul_form_in_float32():
+    """The float32 difference form matches the float64 distances to a few
+    ulps, and is exact on the diagonal where the matmul form cancels."""
     rng = np.random.default_rng(2)
-    u = jnp.asarray(rng.normal(size=(300, 3)), jnp.float32)
-    v = jnp.asarray(rng.normal(size=(260, 3)), jnp.float32)
-    ls = jnp.asarray([0.7, 1.1, 0.9], jnp.float32)
-
-    expected = np.asarray(pairwise._sqexp_fallback(u, v, 1.2, ls))
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(pairwise._sqexp_pallas(u, v, 1.2, ls))
-    assert got.shape == expected.shape
-    assert np.allclose(got, expected, rtol=1e-4, atol=1e-5)
+    u = rng.uniform(0, 10, size=(300, 3))
+    v = rng.uniform(0, 10, size=(260, 3))
+    ls = np.array([0.7, 1.1, 0.9])
+    truth = (((u[:, None, :] - v[None, :, :]) / ls) ** 2).sum(-1)
+    u32, v32, l32 = (jnp.asarray(a, jnp.float32) for a in (u, v, ls))
+    diff = np.asarray(scaled_sq_differences(u32, v32, l32), np.float64)
+    matmul = np.asarray(scaled_sq_distances(u32, v32, l32), np.float64)
+    err_diff = np.abs(diff - truth).max()
+    err_matmul = np.abs(matmul - truth).max()
+    assert err_diff < 1e-5 * truth.max()
+    assert err_diff < err_matmul
+    self_d = np.asarray(scaled_sq_differences(u32, u32, l32))
+    assert np.all(np.diag(self_d) == 0.0)
 
 
 def test_ess_known_autocorrelation():
@@ -79,56 +89,53 @@ def test_ess_batched_matches_host():
     assert np.allclose(batched, host, rtol=0.1)
 
 
-def test_sqexp_pallas_custom_vjp_matches_autodiff():
-    """The hand-written VJP of the Pallas covariance kernel matches jax
-    autodiff of the XLA fallback (interpreter mode on CPU, float64)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from inference_tpu.ops import pairwise
+def _sqexp_direct(u, v, amp, ls):
+    d = (((u[:, None, :] - v[None, :, :]) / ls) ** 2).sum(-1)
+    return amp**2 * jnp.exp(-0.5 * d)
 
+
+def test_sqexp_covariance_hyperparameter_grad_matches_direct():
+    """Reverse-mode hyperparameter gradients of the float32 (difference
+    form) path match autodiff of a direct float64 evaluation."""
     rng = np.random.default_rng(7)
-    u = jnp.asarray(rng.normal(size=(40, 2)))
-    kbar = jnp.asarray(rng.normal(size=(40, 40)))
+    u = rng.normal(size=(40, 2))
+    kbar = rng.normal(size=(40, 40))
 
-    def loss_ref(amp, ls):
-        return jnp.sum(pairwise._sqexp_fallback(u, u, amp, ls) * kbar)
+    def loss(fn, dtype):
+        u_ = jnp.asarray(u, dtype)
+        kb = jnp.asarray(kbar, dtype)
+        return lambda amp, ls: jnp.sum(fn(u_, u_, amp, ls) * kb)
 
-    def loss_pallas(amp, ls):
-        return jnp.sum(pairwise._sqexp_pallas_diff(u, u, amp, ls) * kbar)
-
-    amp = jnp.asarray(1.3)
-    ls = jnp.asarray([0.8, 1.2])
-    g_ref = jax.grad(loss_ref, argnums=(0, 1))(amp, ls)
-    with pltpu.force_tpu_interpret_mode():
-        g_pallas = jax.grad(loss_pallas, argnums=(0, 1))(amp, ls)
-    assert np.isclose(float(g_pallas[0]), float(g_ref[0]), rtol=1e-8)
-    assert np.allclose(np.asarray(g_pallas[1]), np.asarray(g_ref[1]), rtol=1e-8)
+    g_ref = jax.grad(loss(_sqexp_direct, jnp.float64), argnums=(0, 1))(
+        jnp.asarray(1.3), jnp.asarray([0.8, 1.2])
+    )
+    g32 = jax.grad(loss(sqexp_covariance, jnp.float32), argnums=(0, 1))(
+        jnp.asarray(1.3, jnp.float32), jnp.asarray([0.8, 1.2], jnp.float32)
+    )
+    assert np.isclose(float(g32[0]), float(g_ref[0]), rtol=1e-4)
+    assert np.allclose(np.asarray(g32[1]), np.asarray(g_ref[1]), rtol=1e-4)
 
 
-@pytest.mark.slow
-def test_sqexp_pallas_position_vjp_matches_autodiff():
-    """Position cotangents of the custom VJP match jax autodiff of the
-    XLA fallback (interpreter mode on CPU, float64)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from inference_tpu.ops import pairwise
-
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_sqexp_covariance_position_grad_matches_direct(dtype):
+    """Position cotangents match autodiff of the direct evaluation."""
     rng = np.random.default_rng(11)
-    u = jnp.asarray(rng.normal(size=(40, 3)))
-    v = jnp.asarray(rng.normal(size=(48, 3)))
-    kbar = jnp.asarray(rng.normal(size=(40, 48)))
-    amp = jnp.asarray(0.9)
-    ls = jnp.asarray([0.8, 1.2, 1.5])
+    u = jnp.asarray(rng.normal(size=(40, 3)), dtype)
+    v = jnp.asarray(rng.normal(size=(48, 3)), dtype)
+    kbar = jnp.asarray(rng.normal(size=(40, 48)), dtype)
+    amp = jnp.asarray(0.9, dtype)
+    ls = jnp.asarray([0.8, 1.2, 1.5], dtype)
 
-    def loss_ref(u, v):
-        return jnp.sum(pairwise._sqexp_fallback(u, v, amp, ls) * kbar)
+    def grads(fn):
+        return jax.grad(
+            lambda u, v: jnp.sum(fn(u, v, amp, ls) * kbar), argnums=(0, 1)
+        )(u, v)
 
-    def loss_pallas(u, v):
-        return jnp.sum(pairwise._sqexp_pallas_diff(u, v, amp, ls) * kbar)
-
-    g_ref = jax.grad(loss_ref, argnums=(0, 1))(u, v)
-    with pltpu.force_tpu_interpret_mode():
-        g_pallas = jax.grad(loss_pallas, argnums=(0, 1))(u, v)
-    assert np.allclose(np.asarray(g_pallas[0]), np.asarray(g_ref[0]), rtol=1e-8)
-    assert np.allclose(np.asarray(g_pallas[1]), np.asarray(g_ref[1]), rtol=1e-8)
+    g_ref = grads(_sqexp_direct)
+    g = grads(sqexp_covariance)
+    rtol = 1e-8 if dtype == jnp.float64 else 1e-4
+    for a, b in zip(g, g_ref):
+        assert np.allclose(np.asarray(a), np.asarray(b), rtol=rtol, atol=rtol)
 
 
 def test_ess_batched_constant_chain_sentinel():
@@ -207,21 +214,25 @@ def test_ess_constant_series_message():
     assert raised
 
 
-def test_covariance_and_gradients_forces_fallback_path():
-    """The generic jacfwd gradient path must not hit the custom-VJP Pallas
-    wrapper (forward-mode is forbidden there); force_fallback covers it."""
-    from inference_tpu.ops import pairwise
+def test_covariance_and_gradients_forward_mode():
+    """The generic jacfwd gradient path runs through sqexp_covariance and
+    matches finite differences of the covariance."""
     from inference_tpu.gp import SquaredExponential
 
     k = SquaredExponential()
     x = np.random.default_rng(0).normal(size=(64, 2))
     k.pass_spatial_data(jnp.asarray(x))
-    theta = jnp.asarray([0.1, 0.0, 0.2])
-    with pairwise.force_fallback():
-        K = pairwise.sqexp_covariance(x, x, 1.0, jnp.asarray([1.0, 1.0]))
-    assert K.shape == (64, 64)
-    K2, grads = k.covariance_and_gradients(theta)
+    theta = np.array([0.1, 0.0, 0.2])
+    K2, grads = k.covariance_and_gradients(jnp.asarray(theta))
     assert len(grads) == 3 and K2.shape == (64, 64)
+    h = 1e-6
+    for i in range(3):
+        tp, tm = theta.copy(), theta.copy()
+        tp[i] += h
+        tm[i] -= h
+        fd = (np.asarray(k.build_covariance(jnp.asarray(tp)))
+              - np.asarray(k.build_covariance(jnp.asarray(tm)))) / (2 * h)
+        assert np.allclose(np.asarray(grads[i]), fd, atol=1e-6)
 
 
 def test_blocked_cholesky_matches_xla():
